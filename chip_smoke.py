@@ -1,0 +1,350 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (svsdf_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, one line each (any failure raises and the exit code is not 0):
+  1. environment: torch / CUDA versions, the card's name and power limit;
+  2. build: compiles svsdf_tpu_torch/csrc/coarse_scan.cu into
+     build/kernels/ with nvcc (sm_90a);
+  3. kernel vs plain: the coarse-scan kernel against its plain PyTorch
+     version on the card, on the parity cases of the JAX package's
+     tests/test_pallas_svsdf.py and at the main path's shapes, then
+     timed there: the kernel's device time (torch.profiler), the
+     wrapper's and the plain version's time per call (CUDA events);
+  4. main path: plan_batch_staged at B=512, n=8, M=64, sdHeart,
+     PlannerConfig(mem_size=8), default_stages(40, scan_dtype=None) —
+     one warm-up, then 3 timed runs on fresh inputs, each closed by a
+     host readback; the kernel's launch count over this phase must be
+     > 0. Then one more solve under torch.profiler: the device's busy
+     share and the kernels that fill it;
+  5. checks: the same solve at B=32 with the kernel and with the plain
+     scan on the card (median final cost within 1e-3 relative), and one
+     cost/gradient evaluation on the card (float32) against the host
+     (float64).
+Then the kernel table as one JSON line, the nvidia-smi line, and as the
+last line {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+from unittest import mock
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+
+#: H100 SXM published peaks (NVIDIA H100 datasheet): HBM bytes/s and
+#: float32 (non-tensor-core) operations/s
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+
+#: operations per SDF evaluation of the coarse-scan kernel, counted
+#: from csrc/coarse_scan.cu (pose transform 11, running-min compare 1,
+#: body: Circle 6, sdHeart 31, sdArc 20; sqrt, abs, min/max, compare
+#: and select count one each)
+OPS_PER_EVAL = {"Circle": 18, "sdHeart": 43, "sdArc": 32}
+
+#: (B, M, K) of the main path's coarse scans: the fast stage (K=96), the
+#: polish stage (K=128) and its three GSIP rounds on the 6 most interior
+#: points with 2, 6 and 18 boundary samples each (K=32)
+MAIN_SHAPES = ((512, 64, 96), (512, 64, 128), (512, 12, 32), (512, 36, 32),
+               (512, 108, 32))
+KERNEL_NAME = "coarse_scan_kernel"
+
+
+def say(phase: str, **kv) -> None:
+    print(f"[{phase}] " + json.dumps(kv), flush=True)
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def scan_inputs(torch, b, m, k, seed):
+    """Points uniform in [-6, 6]^2 and a wiggly pose path per plan
+    (tests/test_pallas_svsdf.py::_case, with a per-plan phase)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-6, 6, (b, m, 2))
+    t = np.linspace(0.0, 1.0, k)[None]
+    ph = rng.uniform(0, 1, (b, 1))
+    xy = np.stack([8 * t - 4 + 0 * ph, 2 * np.sin(5 * t + ph)], -1)
+    yaw = 2.0 * np.sin(3 * t + ph)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device="cuda")
+    yaw_t = f32(yaw)
+    return f32(pts), f32(xy), torch.cos(yaw_t), torch.sin(yaw_t)
+
+
+def compare_scan(torch, cs, shape, inputs, atol):
+    """Kernel vs plain on the card: (max abs err, bitwise). The kernel's
+    argmin must point at a pose whose reference value is the minimum
+    within atol, and its neighbour values must be the reference's at
+    that argmin -+ 1 (clipped). The kernel is built to agree with the
+    plain version bit for bit, so any difference at all fails."""
+    pts, xy, c, s = inputs
+    mn_k, ar_k, fm_k, fp_k = cs.coarse_scan(shape, pts, xy, c, s)
+    mn_r, ar_r, fm_r, fp_r = cs.coarse_scan_reference(shape, pts, xy, c, s)
+    f_ref = cs.scan_matrix(shape, pts, xy, c, s)           # (B, M, K)
+    torch.cuda.synchronize()
+    k = f_ref.shape[-1]
+    if not bool(((ar_k >= 0) & (ar_k < k)).all()):
+        raise AssertionError(f"{shape.name}: argmin out of [0, {k})")
+    at = lambda idx: torch.gather(f_ref, -1, idx[..., None])[..., 0]
+    err = float((mn_k - mn_r).abs().max())
+    arg_err = float((at(ar_k) - mn_r).abs().max())
+    nerr = float(torch.maximum(
+        (fm_k - at(torch.clamp(ar_k - 1, 0, k - 1))).abs().max(),
+        (fp_k - at(torch.clamp(ar_k + 1, 0, k - 1))).abs().max()))
+    if not err <= atol:
+        raise AssertionError(f"{shape.name}: min differs by {err}")
+    if not arg_err <= atol:
+        raise AssertionError(f"{shape.name}: argmin off the minimum by "
+                             f"{arg_err}")
+    if not nerr <= atol:
+        raise AssertionError(f"{shape.name}: neighbours differ by {nerr}")
+    bitwise = bool(torch.equal(mn_k, mn_r) and torch.equal(ar_k, ar_r)
+                   and torch.equal(fm_k, fm_r) and torch.equal(fp_k, fp_r))
+    if not bitwise:
+        raise AssertionError(f"{shape.name}: kernel and plain version are "
+                             "not bit for bit equal")
+    return max(err, arg_err, nerr), bitwise
+
+
+def time_ms(torch, fn, reps=200):
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def device_ms(torch, fn, reps=50):
+    """torch.profiler over ``reps`` calls of ``fn``: (mean device time of
+    one coarse-scan kernel launch in ms, or None if the profiler saw no
+    device time; launches seen)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us, count = 0.0, 0
+    for evt in prof.key_averages():
+        if KERNEL_NAME in evt.key:
+            total_us += evt.device_time_total
+            count += evt.count
+    return (total_us / count / 1e3 if count and total_us > 0 else None,
+            count)
+
+
+def profile_solve(torch, run):
+    """One main-path solve under torch.profiler: wall seconds, summed
+    device kernel time, kernel launches, and the coarse-scan kernel's
+    and the five largest kernels' device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.device_time_total for e in kernels)
+    by_name = {}
+    for e in kernels:
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.device_time_total)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
+    scan = [v for k, v in by_name.items() if KERNEL_NAME in k]
+    return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
+            "device_busy_share": busy_us / 1e6 / wall,
+            "kernel_launches": len(kernels),
+            "scan_launches": sum(v[0] for v in scan),
+            "scan_device_s": sum(v[1] for v in scan) / 1e6,
+            "top": [{"name": k[:60], "launches": v[0], "device_s": v[1] / 1e6}
+                    for k, v in top]}
+
+
+def scan_bound_ms(shape_name, b, m, k):
+    """Least time for the scan: bytes (points, poses read once; min,
+    argmin (int64), two neighbours written once) over HBM rate vs
+    operations over the float32 rate. Returns (ms, 'bytes' |
+    'operations')."""
+    nbytes = b * m * 2 * 4 + b * 4 * k * 4 + b * m * (3 * 4 + 8)
+    ops = b * m * k * OPS_PER_EVAL[shape_name]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    # -- 1. environment ------------------------------------------------
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke.py needs a CUDA card")
+    from svsdf_tpu_torch import convert
+    from svsdf_tpu_torch.bench import BENCH_MEM_SIZE, problem
+    from svsdf_tpu_torch.models import shapes
+    from svsdf_tpu_torch.ops import cuda_svsdf as cs
+    from svsdf_tpu_torch.parallel import batch as pb
+    from svsdf_tpu_torch.planner import back_end
+    from svsdf_tpu_torch.utils.config import PlannerConfig
+
+    card = smi_line()
+    kind = torch.cuda.get_device_name(0)
+    say("env", python=sys.version.split()[0], torch=torch.__version__,
+        cuda=torch.version.cuda, device=kind, smi=card,
+        count=torch.cuda.device_count())
+
+    # -- 2. build ------------------------------------------------------
+    t0 = time.perf_counter()
+    lib, log = cs.build()
+    say("build", seconds=round(time.perf_counter() - t0, 3),
+        library=os.path.relpath(lib, ROOT),
+        ptxas=[ln.strip() for ln in log.splitlines()
+               if "registers" in ln or "spill" in ln])
+
+    # -- 3. kernel vs plain on the card --------------------------------
+    cases = []
+    for name in ("sdHeart", "Circle", "sdArc"):
+        for pp in ((0.0, 0.0, 0.0), (0.3, -0.2, 25.0)):
+            shape = shapes.make_shape(name, poly_params=pp)
+            for m in (7, 1024, 2000):
+                cases.append((shape, 1, m, 37, 1e-5))
+    cases.append((shapes.make_shape("sdHeart"), 1, 4096, 64, 1e-4))
+    heart = shapes.make_shape("sdHeart")
+    for b, m, k in MAIN_SHAPES:
+        cases.append((heart, b, m, k, 1e-5))
+    worst = 0.0
+    for i, (shape, b, m, k, atol) in enumerate(cases):
+        err, bitwise = compare_scan(torch, cs, shape,
+                                    scan_inputs(torch, b, m, k, seed=i), atol)
+        worst = max(worst, err)
+        say("scan", shape=shape.name, pre=[shape.tx, shape.ty, shape.yaw0],
+            B=b, M=m, K=k, atol=atol, max_abs_err=err, bitwise=bitwise)
+    timings = []
+    for b, m, k in MAIN_SHAPES:
+        inp = scan_inputs(torch, b, m, k, seed=99)
+        wrapper = time_ms(torch, lambda: cs.coarse_scan(heart, *inp))
+        kernel, seen = device_ms(torch, lambda: cs.coarse_scan(heart, *inp))
+        plain = time_ms(torch, lambda: cs.coarse_scan_reference(heart, *inp))
+        bound, by = scan_bound_ms("sdHeart", b, m, k)
+        # "ms": the kernel's device time (profiler); where the profiler
+        # saw none, the wrapper's time per call (CUDA events)
+        timings.append({"B": b, "M": m, "K": k,
+                        "ms": kernel if kernel is not None else wrapper,
+                        "ms_source": "profiler" if kernel is not None
+                        else "events", "wrapper_ms": wrapper,
+                        "profiled_launches": seen, "plain_ms": plain,
+                        "bound_ms": bound, "bound_by": by})
+        say("scan_time", **timings[-1])
+
+    # -- 4. main path --------------------------------------------------
+    n, m_obs, batch, iters = 8, 64, 512, 40
+    cfg = PlannerConfig(mem_size=BENCH_MEM_SIZE)
+    stages = pb.default_stages(iters, scan_dtype=None)
+    h, tl, obs, x0 = problem(n, m_obs, batch)
+    prob, x0_t = convert.problem_from_numpy(h, tl, obs, x0)
+    cs.coarse_scan.launches = 0
+    out = pb.plan_batch_staged(heart, x0_t, prob, cfg, stages, n)
+    float(out.cost.sum())
+    rng = np.random.default_rng(1)
+    walls, costs, n_iters = [], [], []
+    for _ in range(3):
+        xx = x0_t + torch.as_tensor(
+            rng.uniform(-1e-3, 1e-3, x0.shape).astype(np.float32),
+            device="cuda")
+        t0 = time.perf_counter()
+        out = pb.plan_batch_staged(heart, xx, prob, cfg, stages, n)
+        float(out.cost.sum())
+        walls.append(time.perf_counter() - t0)
+        costs.append(float(out.cost.median()))
+        n_iters.append(float(out.n_iters.float().mean()))
+    launches = cs.coarse_scan.launches
+    if launches <= 0:
+        raise AssertionError("the main path launched no coarse-scan kernel")
+    if not (torch.isfinite(out.cost).all() and torch.isfinite(out.opt_x).all()
+            and out.opt_x.shape == (batch, 4 * n - 3)
+            and out.traj.coeffs.shape == (batch, n, 6, 3)):
+        raise AssertionError("main path output not finite / wrong shape")
+    wall = statistics.median(walls)
+    say("main_path", B=batch, n=n, M=m_obs, iters=iters, wall_s=walls,
+        median_wall_s=wall, plans_per_s=batch / wall,
+        median_final_cost=statistics.median(costs),
+        mean_n_iters_last_stage=statistics.mean(n_iters),
+        kernel_launches=launches, launches_per_solve=launches / 4)
+    # where one solve's time goes: device busy share and kernel counts
+    say("main_path_profile", B=batch, **profile_solve(
+        torch, lambda: float(pb.plan_batch_staged(
+            heart, x0_t, prob, cfg, stages, n).cost.sum())))
+
+    # -- 5. checks -----------------------------------------------------
+    small = 32
+    hs, ts_, os_, xs = problem(n, m_obs, small)
+    prob_s, x_s = convert.problem_from_numpy(hs, ts_, os_, xs)
+    with_kernel = pb.plan_batch_staged(heart, x_s, prob_s, cfg, stages, n)
+    c_kernel = float(with_kernel.cost.median())
+    with mock.patch.object(cs, "coarse_scan", cs.coarse_scan_reference):
+        with_plain = pb.plan_batch_staged(heart, x_s, prob_s, cfg, stages, n)
+    c_plain = float(with_plain.cost.median())
+    rel = abs(c_kernel - c_plain) / abs(c_plain)
+    if not rel <= 1e-3:
+        raise AssertionError(f"kernel vs plain scan solve: rel {rel}")
+    # one cost + gradient on the card (f32) vs on the host (f64)
+    polish = stages[1][0]
+    full_d, _ = back_end.make_cost_pair_fn(heart, prob_s, cfg, polish, n)
+    prob_h, x_h = convert.problem_from_numpy(hs, ts_, os_, xs, device="cpu",
+                                             dtype=torch.float64)
+    full_h, _ = back_end.make_cost_pair_fn(heart, prob_h, cfg, polish, n)
+    f_d, g_d, _ = full_d(x_s)
+    f_h, g_h, _ = full_h(x_h)
+    f_rel = float(((f_d.double().cpu() - f_h).abs() / f_h.abs()).max())
+    g_rel = float(((g_d.double().cpu() - g_h).norm(dim=1)
+                   / g_h.norm(dim=1)).max())
+    if not (f_rel <= 1e-4 and g_rel <= 1e-2):
+        raise AssertionError(f"card vs host cost: f {f_rel}, g {g_rel}")
+    say("checks", B=small, median_cost_kernel=c_kernel,
+        median_cost_plain=c_plain, rel_diff=rel,
+        exact=c_kernel == c_plain, cost_f32_vs_f64_rel=f_rel,
+        grad_f32_vs_f64_rel=g_rel)
+
+    main_t = timings[0]
+    print(json.dumps({"kernels": [{
+        "name": "svsdf_coarse_scan",
+        "route": "cuda",
+        "source": "svsdf_tpu_torch/csrc/coarse_scan.cu",
+        "replaces": "svsdf_tpu/ops/pallas_svsdf.py:54",
+        "launches": launches,
+        "max_abs_err": worst,
+        "ms": main_t["ms"],
+        "plain_ms": main_t["plain_ms"],
+        "bound_ms": main_t["bound_ms"],
+        "bound_by": main_t["bound_by"],
+        "library_ms": None,
+    }]}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,168 @@
+"""SVSDF back-end trajectory cost, batched over plans
+(svsdf_tpu/planner/back_end.py).
+
+  cost = spline energy + rho * sum(T)
+       + weight_p * sum_obstacles L1s(safety_hor - SVSDF(p_obs))
+
+over x = (tau, xi). The SVSDF oracle (t*, sdf*, world gradient) runs
+under ``torch.no_grad`` on a detached trajectory — the envelope theorem
+kills the dt* term at the minimiser — and the penalty is re-expressed
+through the first-order surrogate
+
+  sdf~ = sdf* + g_rel0 . (p_rel(coeffs, T; t*) - p_rel0)
+
+whose autograd gradient is the envelope gradient.
+
+Cost functions take x (R, 4N-3) where R is the problem's plan count B
+or a multiple B*C of it (the parallel line search's candidates, rows
+lane-major); the problem tensors are repeated to match. The single-plan
+``optimize`` and the LMBM solver are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from svsdf_tpu_torch.ops import minco
+from svsdf_tpu_torch.ops.svsdf import SVSDFConfig, svsdf_query
+from svsdf_tpu_torch.utils import trajectory as trj
+from svsdf_tpu_torch.utils.config import PlannerConfig
+from svsdf_tpu_torch.utils.lbfgs import value_and_grad
+from svsdf_tpu_torch.utils.transforms import forward_t, smoothed_l1
+
+
+class BackEndProblem(NamedTuple):
+    head: torch.Tensor        # (B, 3, 3)
+    tail: torch.Tensor        # (B, 3, 3)
+    obstacles: torch.Tensor   # (B, M, 2) world xy obstacle points
+
+
+class OracleState(NamedTuple):
+    """Frozen SVSDF linearisation at an iterate (leading plan axis)."""
+    sdf0: torch.Tensor      # (B, M) oracle SVSDF at the iterate
+    alpha: torch.Tensor     # (B, M) t*/T_total fraction
+    g_rel0: torch.Tensor    # (B, M, 2) body-frame SDF gradient
+    p_rel0: torch.Tensor    # (B, M, 2) body-frame point at linearisation
+
+
+def svsdf_linearize(shape, traj: trj.Trajectory, obstacles,
+                    svs_cfg: SVSDFConfig):
+    """Run the SVSDF oracle without gradients and package the penalty
+    linearisation state. Returns (OracleState, SVSDFResult)."""
+    with torch.no_grad():
+        traj_sg = trj.Trajectory(traj.coeffs.detach(),
+                                 traj.durations.detach())
+        obstacles = obstacles.detach()
+        res = svsdf_query(shape, traj_sg, obstacles, svs_cfg,
+                          with_inside=svs_cfg.use_inside)
+        total = torch.sum(traj_sg.durations, dim=-1)[:, None]
+        alpha = res.t_star / total
+        t_eval = alpha * total
+        xy0, _, R0 = trj.state_se2(traj_sg, t_eval)
+        p_rel0 = trj.world_to_body(xy0, R0, obstacles)
+        # body-frame gradient at the linearisation point: R0^T g_w
+        g_rel0 = torch.einsum("bmij,bmi->bmj", R0, res.grad_world)
+    return OracleState(res.sdf, alpha, g_rel0, p_rel0), res
+
+
+def penalty_from_state(traj: trj.Trajectory, obstacles, st: OracleState,
+                       wp, sh, mu):
+    """Differentiable penalty at the frozen oracle state: (B,). The query
+    time is alpha * sum(T), so re-timing gradients stay exact at
+    boundary minimisers."""
+    total = torch.sum(traj.durations, dim=-1)[:, None]
+    t_eval = st.alpha * total
+    xy, _, R = trj.state_se2(traj, t_eval)
+    p_rel = trj.world_to_body(xy, R, obstacles)
+    sdf_lin = st.sdf0 + torch.sum(st.g_rel0 * (p_rel - st.p_rel0), dim=-1)
+    pen = smoothed_l1(sh - sdf_lin, mu)
+    return torch.sum(wp * pen, dim=-1)
+
+
+def svsdf_penalty(shape, traj: trj.Trajectory, obstacles,
+                  cfg: PlannerConfig, svs_cfg: SVSDFConfig,
+                  mu: float = 0.01, weight_p=None, safety_hor=None):
+    """SVSDF safety penalty over obstacle points: (penalty (B,), result)."""
+    wp = cfg.weight_p if weight_p is None else weight_p
+    sh = cfg.safety_hor if safety_hor is None else safety_hor
+    st, res = svsdf_linearize(shape, traj, obstacles, svs_cfg)
+    return penalty_from_state(traj, obstacles, st, wp, sh, mu), res
+
+
+def _expand(problem: BackEndProblem, rows: int) -> BackEndProblem:
+    """Repeat each plan's problem rows // B times (lane-major)."""
+    nb = problem.head.shape[0]
+    if rows == nb:
+        return problem
+    if rows % nb:
+        raise ValueError(f"{rows} cost rows for {nb} plans")
+    rep = rows // nb
+    return BackEndProblem(*(a.repeat_interleave(rep, dim=0)
+                            for a in problem))
+
+
+def _traj(x, problem: BackEndProblem, n: int):
+    tau = x[:, :n]
+    wps = x[:, n:].reshape(x.shape[0], n - 1, 3)
+    times = forward_t(tau)
+    return minco.solve(times, problem.head, problem.tail, wps), times
+
+
+def make_cost_fn(shape, problem: BackEndProblem, cfg: PlannerConfig,
+                 svs_cfg: SVSDFConfig, n: int, mu: float = 0.01,
+                 weight_p=None, safety_hor=None):
+    """cost(x) -> (R,): the full cost, one oracle pass per call."""
+    def cost(x):
+        prob = _expand(problem, x.shape[0])
+        traj, times = _traj(x, prob, n)
+        pen, _ = svsdf_penalty(shape, traj, prob.obstacles, cfg, svs_cfg,
+                               mu=mu, weight_p=weight_p,
+                               safety_hor=safety_hor)
+        return minco.energy(traj) + pen + cfg.rho * torch.sum(times, -1)
+
+    return cost
+
+
+def make_cost_pair_fn(shape, problem: BackEndProblem, cfg: PlannerConfig,
+                      svs_cfg: SVSDFConfig, n: int, mu: float = 0.01,
+                      weight_p=None, safety_hor=None):
+    """(full, frozen) cost pair for the frozen-oracle line search:
+
+      full(x)        -> (f, grad, OracleState)  — one oracle pass
+      frozen(x, st)  -> (f~, grad~)             — surrogate only
+    """
+    wp = cfg.weight_p if weight_p is None else weight_p
+    sh = cfg.safety_hor if safety_hor is None else safety_hor
+
+    def full(x):
+        prob = _expand(problem, x.shape[0])
+        with torch.enable_grad():
+            xr = x.detach().requires_grad_(True)
+            traj, times = _traj(xr, prob, n)
+            st, _ = svsdf_linearize(shape, traj, prob.obstacles, svs_cfg)
+            pen = penalty_from_state(traj, prob.obstacles, st, wp, sh, mu)
+            f = minco.energy(traj) + pen + cfg.rho * torch.sum(times, -1)
+            (g,) = torch.autograd.grad(f.sum(), xr)
+        return f.detach(), g, st
+
+    def _frozen_f(x, st):
+        prob = _expand(problem, x.shape[0])
+        traj, times = _traj(x, prob, n)
+        pen = penalty_from_state(traj, prob.obstacles, st, wp, sh, mu)
+        return minco.energy(traj) + pen + cfg.rho * torch.sum(times, -1)
+
+    def frozen(x, st):
+        return value_and_grad(lambda xx: _frozen_f(xx, st))(x)
+
+    return full, frozen
+
+
+class BackEndResult(NamedTuple):
+    traj: trj.Trajectory
+    opt_x: torch.Tensor
+    cost: torch.Tensor
+    n_iters: torch.Tensor
+    converged: torch.Tensor
+

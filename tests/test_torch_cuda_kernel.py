@@ -1,0 +1,117 @@
+"""The coarse-scan CUDA kernel (svsdf_tpu_torch/csrc/coarse_scan.cu)
+against its plain PyTorch version.
+
+Tests marked ``cuda`` need an NVIDIA card and skip without one: the
+kernel has no CPU mode. This file imports neither JAX nor the JAX
+package, so on a card whose installation has no JAX it runs alone:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernel.py
+
+The other tests hold the wrapper's argument checks, which run before
+anything touches the card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from svsdf_tpu_torch.models import shapes
+from svsdf_tpu_torch.ops import cuda_svsdf as cs
+
+torch.set_num_threads(1)
+
+
+def _inputs(b, m, k, seed, device):
+    """Points in [-6, 6]^2 and a wiggly pose path per plan."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-6, 6, (b, m, 2))
+    t = np.linspace(0.0, 1.0, k)[None]
+    ph = rng.uniform(0, 2, (b, 1))
+    xy = np.stack([8 * t - 4 + ph, 2 * np.sin(5 * t + ph)], -1)
+    yaw = 2.0 * np.sin(3 * t + ph)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    yaw_t = f(yaw)
+    return f(pts), f(xy), torch.cos(yaw_t), torch.sin(yaw_t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    ("sdHeart", (0.0, 0.0, 0.0), 512, 64, 96),
+    ("sdHeart", (0.0, 0.0, 0.0), 512, 64, 128),
+    ("sdHeart", (0.0, 0.0, 0.0), 512, 108, 32),
+    ("sdHeart", (0.3, -0.2, 25.0), 1, 4096, 64),
+    ("Circle", (0.3, -0.2, 25.0), 1, 2000, 37),
+    ("sdArc", (0.3, -0.2, 25.0), 3, 1000, 37),
+], ids=lambda c: f"{c[0]}-{c[2]}x{c[3]}x{c[4]}")
+def test_kernel_matches_plain_on_card(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    name, pre, b, m, k = case
+    shape = shapes.make_shape(name, poly_params=pre)
+    inp = _inputs(b, m, k, seed=k, device="cuda")
+    before = cs.coarse_scan.launches
+    got = cs.coarse_scan(shape, *inp)
+    want = cs.coarse_scan_reference(shape, *inp)
+    torch.cuda.synchronize()
+    assert cs.coarse_scan.launches == before + 1
+    mn, ar, fm, fp = (v.cpu().numpy() for v in got)
+    mn_r, ar_r, fm_r, fp_r = (v.cpu().numpy() for v in want)
+    # built with -fmad=false in the plain version's operation order:
+    # the two agree to the bit
+    np.testing.assert_array_equal(mn, mn_r)
+    np.testing.assert_array_equal(ar, ar_r)
+    np.testing.assert_array_equal(fm, fm_r)
+    np.testing.assert_array_equal(fp, fp_r)
+
+
+@pytest.mark.cuda
+def test_kernel_reads_strided_pose_columns():
+    """The planner passes xy as the (x, y) columns of (B, K, 3) pose
+    samples; the kernel reads them through their strides."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    heart = shapes.make_shape("sdHeart", poly_params=(0.3, -0.2, 25.0))
+    pts, xy, c, s = _inputs(4, 300, 40, seed=3, device="cuda")
+    xyz = torch.cat([xy, torch.zeros_like(xy[..., :1])], -1)
+    strided = xyz[..., :2]
+    assert not strided.is_contiguous()
+    got = cs.coarse_scan(heart, pts, strided, c, s)
+    want = cs.coarse_scan_reference(heart, pts, xy, c, s)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        assert torch.equal(a, b)
+
+
+def _cpu_inputs():
+    return _inputs(2, 5, 9, seed=0, device="cpu")
+
+
+def test_wrapper_refuses_other_shapes_and_bfloat16():
+    pts, xy, c, s = _cpu_inputs()
+    with pytest.raises(NotImplementedError):
+        cs._launch(shapes.make_shape("star"), pts, xy, c, s, None)
+    with pytest.raises(NotImplementedError):
+        cs._launch(shapes.make_shape("Polygon"), pts, xy, c, s, None)
+    with pytest.raises(NotImplementedError):
+        cs._launch(shapes.make_shape("sdHeart"), pts, xy, c, s, "bfloat16")
+
+
+def test_wrapper_checks_types_and_shapes():
+    heart = shapes.make_shape("sdHeart")
+    pts, xy, c, s = _cpu_inputs()
+    with pytest.raises(TypeError):
+        cs._launch(heart, pts.double(), xy, c, s, None)
+    with pytest.raises(ValueError):
+        cs._launch(heart, pts, xy[:, :-1], c, s, None)
+    with pytest.raises(ValueError):
+        cs._launch(heart, pts[..., :1], xy, c, s, None)
+
+
+def test_cpu_tensors_take_the_plain_version():
+    heart = shapes.make_shape("sdHeart")
+    inp = _cpu_inputs()
+    before = cs.coarse_scan.launches
+    for a, b in zip(cs.coarse_scan(heart, *inp),
+                    cs.coarse_scan_reference(heart, *inp)):
+        assert torch.equal(a, b)
+    assert cs.coarse_scan.launches == before

@@ -1,0 +1,93 @@
+"""The PyTorch port stands alone.
+
+  * importing every module of ``svsdf_tpu_torch`` and ``chip_smoke`` in a
+    fresh interpreter loads neither ``jax`` nor any ``svsdf_tpu`` module;
+  * no source file of the port imports JAX or names ``svsdf_tpu.``
+    outside comments;
+  * an entry point called without ``device`` runs on CUDA, so it raises
+    where CUDA is absent instead of falling back to the host.
+"""
+
+import io
+import json
+import os
+import re
+import subprocess
+import sys
+import tokenize
+from pathlib import Path
+
+import pytest
+import torch
+
+from svsdf_tpu_torch import convert, resolve_device
+from svsdf_tpu_torch.bench import BENCH_MEM_SIZE, problem
+from svsdf_tpu_torch.models import shapes
+from svsdf_tpu_torch.parallel import batch as pb
+from svsdf_tpu_torch.utils.config import PlannerConfig
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "svsdf_tpu_torch"
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _module_names():
+    names = []
+    for path in sorted(PKG.rglob("*.py")):
+        parts = path.relative_to(ROOT).with_suffix("").parts
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        names.append(".".join(parts))
+    return names + ["chip_smoke"]
+
+
+_PROBE = """
+import importlib, json, sys
+for name in json.loads(sys.argv[1]):
+    importlib.import_module(name)
+print(json.dumps(sorted(
+    m for m in sys.modules
+    if m in ("jax", "svsdf_tpu") or m.startswith(("jax.", "svsdf_tpu."))
+)))
+"""
+
+
+def test_fresh_import_loads_no_jax():
+    names = _module_names()
+    assert "svsdf_tpu_torch.ops.cuda_svsdf" in names
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", _PROBE, json.dumps(names)],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=300, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def _code_without_comments(path):
+    toks = tokenize.generate_tokens(io.StringIO(path.read_text()).readline)
+    return " ".join(t.string for t in toks if t.type != tokenize.COMMENT)
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_names_no_jax(path):
+    code = _code_without_comments(path)
+    assert not re.search(r"\bimport\s+jax\b|\bfrom\s+jax\b", code)
+    assert not re.search(r"\bsvsdf_tpu\.", code)
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    assert resolve_device("cpu") == torch.device("cpu")
+    h, t, o, x0 = problem(2, 4, 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.problem_from_numpy(h, t, o, x0)
+    prob, x = convert.problem_from_numpy(h, t, o, x0, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pb.plan_batch_staged(shapes.make_shape("sdHeart"), x, prob,
+                             PlannerConfig(mem_size=BENCH_MEM_SIZE),
+                             pb.default_stages(5, scan_dtype=None), 2)
+
