@@ -9,9 +9,10 @@ Phases, one line each (any failure raises and the exit code is not 0):
      build/kernels/ with nvcc (sm_90a);
   3. kernel vs plain: the coarse-scan kernel against its plain PyTorch
      version on the card, on the parity cases of the JAX package's
-     tests/test_pallas_svsdf.py and at the main path's shapes, then
-     timed there: the kernel's device time (torch.profiler), the
-     wrapper's and the plain version's time per call (CUDA events);
+     tests/test_pallas_svsdf.py for every shape body, then timed at the
+     main and e2e paths' shapes: the kernel's device time
+     (torch.profiler), the wrapper's and the plain version's time per
+     call (CUDA events);
   4. main path: plan_batch_staged at B=512, n=8, M=64, sdHeart,
      PlannerConfig(mem_size=8), default_stages(40, scan_dtype=None) —
      one warm-up, then 3 timed runs on fresh inputs, each closed by a
@@ -21,9 +22,31 @@ Phases, one line each (any failure raises and the exit code is not 0):
   5. checks: the same solve at B=32 with the kernel and with the plain
      scan on the card (median final cost within 1e-3 relative), and one
      cost/gradient evaluation on the card (float32) against the host
-     (float64).
-Then the kernel table as one JSON line, the nvidia-smi line, and as the
-last line {"ok": true, "device": {...}}.
+     (float64);
+  6. batched end to end: plan_batch_e2e at bench_e2e's setting (forest
+     map, sdHeart, B=512, n=8, 48 obstacles, default_stages(40,
+     scan_dtype=None), 2-D front end, no refine rounds) — one warm-up,
+     then 3 timed runs on fresh start/goal draws, each closed by a host
+     readback; every front end must reach its goal. Then one run under
+     torch.profiler, and the front end timed alone against a whole run;
+  7. online replanning: OnlineReplanner on each synthetic scenario with
+     default_stages_lowlat(50, scan_dtype=None) (3-D front end, route
+     shaping, 2 certify-refine rounds), one replan each (must succeed),
+     and 3 jittered replans on synthetic_sdTrapezoid for the p50; then
+     the JAX package's product operating point (bench.py::_real_replan:
+     n_pieces=12, n_obs=160, default_stages(80, scan_dtype=None), 14
+     refine rounds, tightness 8) on the forest map with sdHeart, one
+     replan and 3 jittered ones. Each replan prints its certify-refine
+     re-solves (L-BFGS solves past the staged ones);
+  8. checks of the new paths: plan_batch_e2e at B=32 with 2 refine
+     rounds and the 3-D front end, and one synthetic_Polygon replan, each
+     with the kernel and with the plain scan (cost and certificate within
+     1e-3 relative); feasibility_maps on the card against the host.
+The coarse-scan launches are counted over each path (phases 4, 6 and 7)
+from 0, and after each path the kernel is held bit for bit against its
+plain version, on seeded inputs, at every shape and (B, M, K) that path
+launched it at. Then the kernel table as one JSON line, the nvidia-smi
+line, and as the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -46,15 +69,31 @@ FP32_OPS_PER_S = 67e12
 
 #: operations per SDF evaluation of the coarse-scan kernel, counted
 #: from csrc/coarse_scan.cu (pose transform 11, running-min compare 1,
-#: body: Circle 6, sdHeart 31, sdArc 20; sqrt, abs, min/max, compare
-#: and select count one each)
-OPS_PER_EVAL = {"Circle": 18, "sdHeart": 43, "sdArc": 32}
+#: body: Circle 6, sdHeart 31, sdArc 20, sdTrapezoid 36, sdRoundedX and
+#: bigX 15, sdMoon 35; sqrt, abs, min/max, compare and select count one
+#: each). A Polygon of E edges: 27 per edge plus 8 (OPS_POLYGON).
+OPS_PER_EVAL = {"Circle": 18, "sdHeart": 43, "sdArc": 32,
+                "sdTrapezoid": 48, "sdRoundedX": 27, "bigX": 27,
+                "sdMoon": 47}
+OPS_POLYGON = (27, 8 + 12)
 
-#: (B, M, K) of the main path's coarse scans: the fast stage (K=96), the
-#: polish stage (K=128) and its three GSIP rounds on the 6 most interior
-#: points with 2, 6 and 18 boundary samples each (K=32)
+
+def ops_per_eval(shape) -> int:
+    if shape.name == "Polygon":
+        return OPS_POLYGON[0] * len(shape.vertices) + OPS_POLYGON[1]
+    return OPS_PER_EVAL[shape.name]
+
+
+#: (B, M, K) of the main path's coarse scans, timed in phase 3: the fast
+#: stage (K=96), the polish stage (K=128) and its three GSIP rounds on
+#: the 6 most interior points with 2, 6 and 18 boundary samples (K=32)
 MAIN_SHAPES = ((512, 64, 96), (512, 64, 128), (512, 12, 32), (512, 36, 32),
                (512, 108, 32))
+#: (B, M, K) of the end-to-end path's scans with 48 obstacles, timed in
+#: phase 3: the fast stage, the polish stage, the certificate at K=192
+E2E_SHAPES = ((512, 48, 96), (512, 48, 128), (512, 48, 192))
+#: the shapes whose kernel bodies the synthetic scenarios need
+NEW_SHAPES = ("sdTrapezoid", "sdRoundedX", "bigX", "sdMoon", "Polygon")
 KERNEL_NAME = "coarse_scan_kernel"
 
 
@@ -180,16 +219,70 @@ def profile_solve(torch, run):
                     for k, v in top]}
 
 
-def scan_bound_ms(shape_name, b, m, k):
+def scan_bound_ms(shape, b, m, k):
     """Least time for the scan: bytes (points, poses read once; min,
     argmin (int64), two neighbours written once) over HBM rate vs
     operations over the float32 rate. Returns (ms, 'bytes' |
     'operations')."""
     nbytes = b * m * 2 * 4 + b * 4 * k * 4 + b * m * (3 * 4 + 8)
-    ops = b * m * k * OPS_PER_EVAL[shape_name]
+    ops = b * m * k * ops_per_eval(shape)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+class ShapeLog:
+    """Records the shape and (B, M, K) of every kernel launch while
+    active, by wrapping the wrapper's launch function (the count stays
+    the wrapper's own); ``check`` then holds the kernel against its plain
+    version at each of them."""
+
+    def __init__(self, cs):
+        self.cs, self.seen = cs, {}
+        self._orig = cs._launch
+
+    def __enter__(self):
+        def logged(shape, points, xy, *rest):
+            key = (shape.name, shape.tx, shape.ty, shape.yaw0,
+                   shape.vertices, points.shape[0], points.shape[1],
+                   xy.shape[1])
+            self.seen.setdefault(key, shape)
+            return self._orig(shape, points, xy, *rest)
+        self.cs._launch = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.cs._launch = self._orig
+
+    def summary(self):
+        return sorted({f"{k[0]} {k[5]}x{k[6]}x{k[7]}" for k in self.seen})
+
+    def check(self, torch, path, seed):
+        """Kernel vs plain, bit for bit, on seeded inputs at every shape
+        and (B, M, K) the path launched; returns the largest error."""
+        worst = 0.0
+        for i, (key, shape) in enumerate(self.seen.items()):
+            b, m, k = key[5:]
+            err, _ = compare_scan(torch, self.cs, shape,
+                                  scan_inputs(torch, b, m, k, seed + i), 1e-5)
+            worst = max(worst, err)
+        say("path_scans", path=path, cases=len(self.seen),
+            shapes=self.summary(), max_abs_err=worst, bitwise=True)
+        return worst
+
+
+def timed(torch, fn):
+    """(result, wall seconds) with the device synchronised on both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def rel_diff(a, b):
+    """max |a - b| / max(1, |b|) over the elements."""
+    return float(((a - b).abs() / b.abs().clamp_min(1.0)).max())
 
 
 def main() -> int:
@@ -200,11 +293,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card")
     from svsdf_tpu_torch import convert
-    from svsdf_tpu_torch.bench import BENCH_MEM_SIZE, problem
+    from svsdf_tpu_torch.bench import (BENCH_MEM_SIZE, e2e_draws, e2e_setup,
+                                       problem)
     from svsdf_tpu_torch.models import shapes
     from svsdf_tpu_torch.ops import cuda_svsdf as cs
+    from svsdf_tpu_torch.ops import kernels as kops
     from svsdf_tpu_torch.parallel import batch as pb
     from svsdf_tpu_torch.planner import back_end
+    from svsdf_tpu_torch.planner.online import (OnlineReplanner,
+                                                front_end_maps)
+    from svsdf_tpu_torch.utils import fixtures, mapgen
     from svsdf_tpu_torch.utils.config import PlannerConfig
 
     card = smi_line()
@@ -230,8 +328,13 @@ def main() -> int:
                 cases.append((shape, 1, m, 37, 1e-5))
     cases.append((shapes.make_shape("sdHeart"), 1, 4096, 64, 1e-4))
     heart = shapes.make_shape("sdHeart")
-    for b, m, k in MAIN_SHAPES:
-        cases.append((heart, b, m, k, 1e-5))
+    # the new bodies (Polygon: the fallback thin rectangle); the paths'
+    # own shapes are checked after each path (ShapeLog.check)
+    for name in NEW_SHAPES:
+        for pp in ((0.0, 0.0, 0.0), (0.3, -0.2, 25.0)):
+            shape = shapes.make_shape(name, poly_params=pp)
+            for m in (7, 1024, 2000):
+                cases.append((shape, 1, m, 37, 1e-5))
     worst = 0.0
     for i, (shape, b, m, k, atol) in enumerate(cases):
         err, bitwise = compare_scan(torch, cs, shape,
@@ -240,15 +343,16 @@ def main() -> int:
         say("scan", shape=shape.name, pre=[shape.tx, shape.ty, shape.yaw0],
             B=b, M=m, K=k, atol=atol, max_abs_err=err, bitwise=bitwise)
     timings = []
-    for b, m, k in MAIN_SHAPES:
+    for path, (b, m, k) in ([("main", sh) for sh in MAIN_SHAPES]
+                            + [("e2e", sh) for sh in E2E_SHAPES]):
         inp = scan_inputs(torch, b, m, k, seed=99)
         wrapper = time_ms(torch, lambda: cs.coarse_scan(heart, *inp))
         kernel, seen = device_ms(torch, lambda: cs.coarse_scan(heart, *inp))
         plain = time_ms(torch, lambda: cs.coarse_scan_reference(heart, *inp))
-        bound, by = scan_bound_ms("sdHeart", b, m, k)
+        bound, by = scan_bound_ms(heart, b, m, k)
         # "ms": the kernel's device time (profiler); where the profiler
         # saw none, the wrapper's time per call (CUDA events)
-        timings.append({"B": b, "M": m, "K": k,
+        timings.append({"path": path, "B": b, "M": m, "K": k,
                         "ms": kernel if kernel is not None else wrapper,
                         "ms_source": "profiler" if kernel is not None
                         else "events", "wrapper_ms": wrapper,
@@ -263,23 +367,25 @@ def main() -> int:
     h, tl, obs, x0 = problem(n, m_obs, batch)
     prob, x0_t = convert.problem_from_numpy(h, tl, obs, x0)
     cs.coarse_scan.launches = 0
-    out = pb.plan_batch_staged(heart, x0_t, prob, cfg, stages, n)
-    float(out.cost.sum())
-    rng = np.random.default_rng(1)
-    walls, costs, n_iters = [], [], []
-    for _ in range(3):
-        xx = x0_t + torch.as_tensor(
-            rng.uniform(-1e-3, 1e-3, x0.shape).astype(np.float32),
-            device="cuda")
-        t0 = time.perf_counter()
-        out = pb.plan_batch_staged(heart, xx, prob, cfg, stages, n)
+    with ShapeLog(cs) as main_log:
+        out = pb.plan_batch_staged(heart, x0_t, prob, cfg, stages, n)
         float(out.cost.sum())
-        walls.append(time.perf_counter() - t0)
-        costs.append(float(out.cost.median()))
-        n_iters.append(float(out.n_iters.float().mean()))
+        rng = np.random.default_rng(1)
+        walls, costs, n_iters = [], [], []
+        for _ in range(3):
+            xx = x0_t + torch.as_tensor(
+                rng.uniform(-1e-3, 1e-3, x0.shape).astype(np.float32),
+                device="cuda")
+            t0 = time.perf_counter()
+            out = pb.plan_batch_staged(heart, xx, prob, cfg, stages, n)
+            float(out.cost.sum())
+            walls.append(time.perf_counter() - t0)
+            costs.append(float(out.cost.median()))
+            n_iters.append(float(out.n_iters.float().mean()))
     launches = cs.coarse_scan.launches
     if launches <= 0:
         raise AssertionError("the main path launched no coarse-scan kernel")
+    worst = max(worst, main_log.check(torch, "main", seed=1000))
     if not (torch.isfinite(out.cost).all() and torch.isfinite(out.opt_x).all()
             and out.opt_x.shape == (batch, 4 * n - 3)
             and out.traj.coeffs.shape == (batch, n, 6, 3)):
@@ -325,6 +431,186 @@ def main() -> int:
         exact=c_kernel == c_plain, cost_f32_vs_f64_rel=f_rel,
         grad_f32_vs_f64_rel=g_rel)
 
+    # -- 6. batched end to end -----------------------------------------
+    e2e = e2e_setup()
+    res_e = e2e.grid.resolution
+    xy_min_e = e2e.grid.xyz_min[:2].astype(np.float32)
+    n_e, obs_e, batch_e = 8, 48, 512
+
+    def run_e2e(s, g, **kw):
+        return pb.plan_batch_e2e(e2e.shape, e2e.feas, e2e.occ_pts, s, g, cfg,
+                                 stages, n_e, obs_e, res_e, xy_min_e, **kw)
+
+    rng = np.random.default_rng(0)
+    cs.coarse_scan.launches = 0
+    with ShapeLog(cs) as e2e_log:
+        out = run_e2e(*e2e_draws(e2e.cells, batch_e, rng))
+        float(out.cost.sum())
+        walls, ok_shares, outs = [], [], []
+        for _ in range(3):
+            s, g = e2e_draws(e2e.cells, batch_e, rng)
+            t0 = time.perf_counter()
+            out = run_e2e(s, g)
+            float(out.cost.sum())
+            walls.append(time.perf_counter() - t0)
+            ok_shares.append(float(out.front_ok.float().mean()))
+            outs.append(out)
+    e2e_launches = cs.coarse_scan.launches
+    if e2e_launches <= 0:
+        raise AssertionError("the e2e path launched no coarse-scan kernel")
+    worst = max(worst, e2e_log.check(torch, "e2e", seed=2000))
+    if min(ok_shares) < 1.0:
+        raise AssertionError(f"e2e front end missed goals: {ok_shares}")
+    for o in outs:
+        if not (torch.isfinite(o.cost).all() and torch.isfinite(o.x).all()
+                and torch.isfinite(o.cert_min).all()
+                and o.coeffs.shape == (batch_e, n_e, 6, 3)):
+            raise AssertionError("e2e output not finite / wrong shape")
+    wall = statistics.median(walls)
+    say("e2e", B=batch_e, n=n_e, n_obs=obs_e, iters=iters, wall_s=walls,
+        median_wall_s=wall, e2e_plans_per_s=batch_e / wall,
+        front_ok_share=ok_shares,
+        median_cost=statistics.median(float(o.cost.median()) for o in outs),
+        median_cert_min=statistics.median(float(o.cert_min.median())
+                                          for o in outs),
+        kernel_launches=e2e_launches, launches_per_run=e2e_launches / 4)
+    say("e2e_profile", B=batch_e, **profile_solve(
+        torch, lambda: float(run_e2e(s, g).cost.sum())))
+    # the front end alone against whole runs, alternated
+    fronts, wholes = [], []
+    for _ in range(2):
+        fronts.append(timed(torch, lambda: pb.front_end(
+            e2e.feas, e2e.occ_pts, s, g, cfg, n_e, obs_e, res_e,
+            xy_min_e))[1])
+        wholes.append(timed(torch, lambda: run_e2e(s, g))[1])
+    say("e2e_front_end", front_end_s=fronts, whole_s=wholes,
+        front_end_share=statistics.median(fronts) / statistics.median(wholes),
+        solve_and_certificate_share=1.0 - statistics.median(fronts)
+        / statistics.median(wholes))
+
+    # -- 7. online replanning ------------------------------------------
+    lowlat = pb.default_stages_lowlat(50, scan_dtype=None)
+    product = pb.default_stages(80, scan_dtype=None)
+
+    def replan_once(rp, label, start, goal, stages_, solves):
+        """One replan that must succeed; the L-BFGS solves past the
+        staged ones are certify-refine re-solves."""
+        solves.reset_mock()
+        r = rp.replan(start, goal)
+        finite = bool(np.isfinite(r.cost) and np.isfinite(r.cert_min)
+                      and torch.isfinite(r.traj.coeffs).all())
+        if not (r.success and finite):
+            raise AssertionError(f"{label}: replan failed")
+        return r, solves.call_count - len(stages_)
+
+    def jittered(rp, label, start, goal, stages_, solves, setting):
+        """3 replans with start and goal jittered by +-0.25 resolution
+        (bench.py::_real_replan's draw): the p50 latency."""
+        jr = np.random.default_rng(0)
+        jit_r = 0.25 * rp.config.occupancy_resolution
+        lat, certs, refine = [], [], []
+        for _ in range(3):
+            st_ = np.asarray(start) + jr.uniform(-jit_r, jit_r, 2)
+            gl_ = np.asarray(goal) + jr.uniform(-jit_r, jit_r, 2)
+            t0 = time.perf_counter()
+            rj, nr = replan_once(rp, label, st_, gl_, stages_, solves)
+            lat.append(time.perf_counter() - t0)
+            certs.append(rj.cert_min)
+            refine.append(nr)
+        say("replan_latency", scenario=label, setting=setting, latency_s=lat,
+            replan_p50_s=statistics.median(lat), cert_min=certs,
+            refine_solves=refine)
+
+    cs.coarse_scan.launches = 0
+    with ShapeLog(cs) as replan_log, mock.patch.object(
+            pb.lbfgs, "minimize", wraps=pb.lbfgs.minimize) as solves:
+        for name in fixtures.list_synthetic_scenarios():
+            sc = fixtures.synthetic_scenario(name)
+            rp = OnlineReplanner(sc.config, sc.map_points, stages=lowlat)
+            r, nr = replan_once(rp, sc.name, sc.start[:2], sc.goal[:2],
+                                lowlat, solves)
+            say("replan", scenario=sc.name, build_breakdown=rp.build_breakdown,
+                n_obs=rp.n_obs, success=r.success, cost=r.cost,
+                cert_min=r.cert_min, refine_solves=nr)
+            if name == "sdTrapezoid":
+                jittered(rp, sc.name, sc.start[:2], sc.goal[:2], lowlat,
+                         solves, "synthetic gate map, default_stages_lowlat"
+                         "(50), n_pieces=8, n_obs capped by the map")
+        # the JAX package's product operating point (bench.py::_real_replan:
+        # n_pieces=12, n_obs=160, default_stages(80), 14 refine rounds,
+        # tightness 8), on the forest map with sdHeart: its reference map
+        # is not in the repo
+        rp = OnlineReplanner(PlannerConfig(), mapgen.map_forest(
+            res=0.5, seed=3, n_trees=14), n_pieces=12, n_obs=160,
+            stages=product, refine_rounds=14, refine_iters=12,
+            tightness_weight=8.0)
+        pair = e2e.cells[np.random.default_rng(0).integers(
+            0, len(e2e.cells), 2)]
+        start_f, goal_f = (e2e.grid.xyz_min[:2] + (pair + 0.5) * res_e)
+        r, nr = replan_once(rp, "forest_sdHeart", start_f, goal_f, product,
+                            solves)
+        say("replan", scenario="forest_sdHeart",
+            build_breakdown=rp.build_breakdown, n_obs=rp.n_obs,
+            success=r.success, cost=r.cost, cert_min=r.cert_min,
+            refine_solves=nr)
+        jittered(rp, "forest_sdHeart", start_f, goal_f, product, solves,
+                 "forest map, bench.py::_real_replan's settings")
+    replan_launches = cs.coarse_scan.launches
+    if replan_launches <= 0:
+        raise AssertionError("the replan path launched no coarse-scan kernel")
+    say("replan_launches", kernel_launches=replan_launches)
+    worst = max(worst, replan_log.check(torch, "replan", seed=3000))
+
+    # -- 8. checks of the new paths ------------------------------------
+    cfg_f = PlannerConfig(mem_size=BENCH_MEM_SIZE, kernel_size=15,
+                          kernel_yaw_num=8)
+    feas3, trans3, cc3 = front_end_maps(e2e.shape, e2e.grid.occ2d, cfg_f)
+    if not torch.equal(feas3, e2e.feas):
+        raise AssertionError("front_end_maps feas differs from the e2e set-up")
+    s32, g32 = e2e_draws(e2e.cells, 32, np.random.default_rng(7))
+
+    def refine_e2e():
+        return run_e2e(s32, g32, refine_rounds=2, trans_feas=trans3,
+                       cell_cost=cc3, cert_margin=0.25 * cfg_f.safety_hor)
+
+    sc = fixtures.synthetic_scenario("Polygon")
+    rp = OnlineReplanner(sc.config, sc.map_points, stages=lowlat)
+    replan = lambda: rp.replan(sc.start[:2], sc.goal[:2])
+    with mock.patch.object(pb.lbfgs, "minimize",
+                           wraps=pb.lbfgs.minimize) as solves:
+        e_k = refine_e2e()
+    e_refine = solves.call_count - len(stages)
+    r_k = replan()
+    with mock.patch.object(cs, "coarse_scan", cs.coarse_scan_reference):
+        e_p, r_p = refine_e2e(), replan()
+    e_cost, e_cert = rel_diff(e_k.cost, e_p.cost), rel_diff(e_k.cert_min,
+                                                            e_p.cert_min)
+    r_cost = abs(r_k.cost - r_p.cost) / max(1.0, abs(r_p.cost))
+    r_cert = abs(r_k.cert_min - r_p.cert_min) / max(1.0, abs(r_p.cert_min))
+    if not max(e_cost, e_cert, r_cost, r_cert) <= 1e-3:
+        raise AssertionError(f"kernel vs plain: e2e {e_cost} {e_cert}, "
+                             f"replan {r_cost} {r_cert}")
+    if not bool(e_k.front_ok.all()):
+        raise AssertionError("3-D front end missed a goal")
+    # feasibility on the card against the host
+    ker_d = kops.rasterize_shape_kernels(e2e.shape, 15, 8, 1.0, 0.5)
+    ker_h = kops.rasterize_shape_kernels(e2e.shape, 15, 8, 1.0, 0.5,
+                                         device="cpu")
+    feas_d = kops.feasibility_maps(e2e.grid.occ2d.copy(), ker_d)
+    feas_h = kops.feasibility_maps(e2e.grid.occ2d.copy(), ker_h, device="cpu")
+    if not (torch.equal(ker_d.cpu(), ker_h)
+            and torch.equal(feas_d.cpu(), feas_h)):
+        raise AssertionError("feasibility maps differ between card and host")
+    say("checks_e2e", B=32, refine_rounds=2, refine_solves=e_refine,
+        e2e_cost_rel=e_cost, e2e_cert_rel=e_cert,
+        e2e_exact=bool(torch.equal(e_k.cost, e_p.cost)
+                       and torch.equal(e_k.cert_min, e_p.cert_min)),
+        e2e_median_cert=float(e_k.cert_min.median()),
+        replan_cost=[r_k.cost, r_p.cost], replan_cert=[r_k.cert_min,
+                                                       r_p.cert_min],
+        replan_exact=r_k.cost == r_p.cost and r_k.cert_min == r_p.cert_min,
+        feasibility_equal=True, feasible_cells=int(feas_d.sum()))
+
     main_t = timings[0]
     print(json.dumps({"kernels": [{
         "name": "svsdf_coarse_scan",
@@ -338,6 +624,10 @@ def main() -> int:
         "bound_ms": main_t["bound_ms"],
         "bound_by": main_t["bound_by"],
         "library_ms": None,
+        "launches_by_path": {"main": launches, "e2e": e2e_launches,
+                             "replan": replan_launches},
+        "shapes_ran": {"main": main_log.summary(), "e2e": e2e_log.summary(),
+                       "replan": replan_log.summary()},
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,6 @@
-"""The main path's problem set (own copy of bench.py::_problem).
+"""The port's problem sets: the main path's (own copy of
+bench.py::_problem) and the end-to-end cell's map (own copy of the
+set-up of bench.py::bench_e2e).
 
 ``problem`` builds B independent back-end problems from numpy seeds,
 exactly as the repo's ``bench.py`` does: goals in [6, 10] x [-2, 2],
@@ -9,6 +11,8 @@ port's tensors and which the JAX package takes as they are.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -38,3 +42,49 @@ def problem(n_pieces: int, n_obs: int, batch: int, seed: int = 0):
                   (batch, 1))
     x0 = np.concatenate([tau, wps.reshape(batch, -1)], axis=1)
     return (head, tail, obs.astype(np.float32), x0.astype(np.float32))
+
+
+class E2ESetup(NamedTuple):
+    shape: object              # the robot, sdHeart
+    grid: object               # GridMap of the forest at 1 m
+    feas: torch.Tensor         # (8, X, Y) bool yaw-bin feasibility, device
+    occ_pts: torch.Tensor      # (M, 2) float32 occupied-cell centres, device
+    cells: np.ndarray          # (C, 2) int64 start / goal candidates
+
+
+def e2e_setup(device=None) -> E2ESetup:
+    """The end-to-end cell's map and robot (own copy of bench.py's
+    bench_e2e set-up): map_forest(res=0.5, seed=3, n_trees=14) voxelized
+    at 1 m, sdHeart, 8 yaw bins of 15x15 stencils at a 0.5 m margin, the
+    occupied-cell centres, and the cells of the free component connected
+    to the middle free cell, from which start and goal cells are drawn."""
+    from svsdf_tpu_torch import resolve_device
+    from svsdf_tpu_torch.models import shapes
+    from svsdf_tpu_torch.ops import kernels as kops
+    from svsdf_tpu_torch.planner import wavefront
+    from svsdf_tpu_torch.utils import mapgen
+    from svsdf_tpu_torch.utils.gridmap import GridMap
+
+    dev = resolve_device(device)
+    grid = GridMap.from_points(mapgen.map_forest(res=0.5, seed=3,
+                                                 n_trees=14), 1.0, 1)
+    shape = shapes.make_shape("sdHeart")
+    kernels = kops.rasterize_shape_kernels(shape, 15, 8, 1.0, 0.5,
+                                           device=dev)
+    feas = kops.feasibility_maps(grid.occ2d.copy(), kernels, device=dev)
+    free = torch.any(feas, dim=0)
+    fi0, fj0 = np.nonzero(free.cpu().numpy())
+    seed_cell = [[fi0[len(fi0) // 2], fj0[len(fj0) // 2]]]
+    dist = wavefront.distance_field(free, seed_cell, device=dev)[0]
+    fi, fj = np.nonzero((free & (dist < 1e8)).cpu().numpy())
+    return E2ESetup(shape, grid, feas,
+                    torch.as_tensor(grid.occupied_centers_2d(), device=dev),
+                    np.stack([fi, fj], -1).astype(np.int64))
+
+
+def e2e_draws(cells, batch: int, rng: np.random.Generator):
+    """(starts, goals) (B, 2) int64 cells drawn uniformly from ``cells``
+    with ``rng`` (bench.py's pick(): starts first, then goals)."""
+    pick = lambda: cells[rng.integers(0, len(cells), batch)]
+    starts = pick()
+    return starts, pick()

@@ -1,7 +1,8 @@
 """Carry the JAX package's state across to the port.
 
 This system has no learned weights: its parameters are the problem,
-the trajectory and the configurations. Each function here takes numpy
+the trajectory, the configurations, and the map with the front end's
+feasibility tensors. Each function here takes numpy
 arrays or plain dicts (``dataclasses.asdict`` of a JAX-side config) and
 returns the port's form, so one set of inputs feeds both packages.
 Nothing here imports JAX.
@@ -20,6 +21,8 @@ from svsdf_tpu_torch.models import shapes
 from svsdf_tpu_torch.ops.svsdf import SVSDFConfig
 from svsdf_tpu_torch.planner.back_end import BackEndProblem
 from svsdf_tpu_torch.utils.config import PlannerConfig
+from svsdf_tpu_torch.utils.fixtures import Scenario
+from svsdf_tpu_torch.utils.gridmap import GridMap
 from svsdf_tpu_torch.utils.trajectory import Trajectory
 
 
@@ -69,3 +72,34 @@ def shape_from_spec(name: str,
                     vertices: Optional[Sequence] = None) -> shapes.Shape2D:
     return shapes.make_shape(name, poly_params=poly_params,
                              vertices=vertices)
+
+
+def gridmap_from_numpy(resolution: float, xyz_min, occ) -> GridMap:
+    """A GridMap from another package's grid fields (resolution, (3,)
+    origin, (X, Y, Z) occupancy)."""
+    return GridMap(resolution=float(resolution),
+                   xyz_min=np.asarray(xyz_min, np.float64),
+                   occ=np.asarray(occ, np.uint8))
+
+
+def scenario_from_numpy(name: str, config: dict, map_points, start,
+                        goal) -> Scenario:
+    """A Scenario from a config dict (``dataclasses.asdict`` of the JAX
+    side's) and numpy arrays."""
+    return Scenario(name=name, config=planner_config_from_dict(config),
+                    map_points=np.asarray(map_points, np.float64),
+                    start=np.asarray(start, np.float64),
+                    goal=np.asarray(goal, np.float64))
+
+
+def front_end_maps_from_numpy(feas, occ_pts, trans_feas=None,
+                              cell_cost=None, device=None):
+    """The map tensors plan_batch_e2e takes, from numpy: feas (K, X, Y)
+    bool, occ_pts (M, 2) float32, trans_feas (K, D, 8, X, Y) bool and
+    cell_cost (X, Y) float32 (None stays None)."""
+    dev = resolve_device(device)
+    as_bool = lambda a: None if a is None else torch.as_tensor(
+        np.array(a, bool), device=dev)
+    as_f32 = lambda a: None if a is None else _tensor(a, dev, torch.float32)
+    return (as_bool(feas), as_f32(occ_pts), as_bool(trans_feas),
+            as_f32(cell_cost))

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -389,3 +390,19 @@ def make_shape(name: str,
                        vertices=tuple(map(tuple, vv.tolist())))
     return Shape2D(name=name, body_sdf=_REGISTRY[name], tx=tx, ty=ty,
                    yaw0=yaw_deg * PI / 180.0)
+
+
+def shape_from_objpath(objpath: str,
+                       poly_params: Sequence[float] = (0.0, 0.0, 0.0)
+                       ) -> Shape2D:
+    """Select the shape from the config ``inputdata`` obj path
+    (initShapeByString, sw_manager.hpp:350-373): a known analytic stem
+    wins; a missing file falls back to the thin-rectangle Polygon. An
+    existing ``.obj`` of an unknown name needs the mesh SDF, which is
+    not ported yet, and raises."""
+    stem = objpath.rsplit("/", 1)[-1]
+    stem = stem[:-4] if stem.endswith(".obj") else stem
+    if stem not in _REGISTRY and os.path.isfile(objpath):
+        raise NotImplementedError(
+            f"mesh-SDF shapes are not ported yet: {objpath!r}")
+    return make_shape(stem, poly_params=poly_params)

@@ -88,6 +88,24 @@ def linspace(stop, n: int):
     return torch.cat([stop[:, None] * step, stop[:, None]], dim=1)
 
 
+def linspace_1d(start: float, stop: float, n: int, dtype, device):
+    """jnp.linspace(start, stop, n) for Python-float bounds, rounded as
+    XLA compiles it on the CPU: the division by n-1 becomes a product
+    with the reciprocal, and for start == 0 the product reassociates to
+    (stop * (1/(n-1))) * k; exact endpoint."""
+    if n == 1:
+        return torch.full((1,), start, dtype=dtype, device=device)
+    k = torch.arange(n - 1, dtype=dtype, device=device)
+    rcp = 1.0 / (n - 1)
+    if start == 0.0:
+        out = (stop * rcp) * k
+    else:
+        step = k * rcp
+        out = start * (1 - step) + stop * step
+    return torch.cat([out, torch.full((1,), stop, dtype=dtype,
+                                      device=device)])
+
+
 def make_pose_table(traj: trj.Trajectory, n: int) -> PoseTable:
     ts = linspace(traj.total_duration, n)
     xy, yaw, _ = trj.state_se2(traj, ts)
@@ -201,7 +219,8 @@ def tstar_search_batch(shape, traj, points, cfg: SVSDFConfig,
     hi = _clip(t0 + dt, 0.0, tot)
 
     sn = max(cfg.refine_n, 4)
-    u = linspace(points.new_ones((1,)), sn)[0]               # (S,)
+    # in the trajectory's dtype, which the obstacle points need not share
+    u = linspace(total.new_ones((1,)), sn)[0]                # (S,)
     t_star = t0
     if cfg.refine_interp_n > 0:
         ft = make_fine_table(traj, cfg.refine_interp_n)
@@ -292,7 +311,7 @@ def _gsip_inside(shape, traj, p, t_star0, cfg: SVSDFConfig,
 
     def gsip_iter(carry, theta_res, n_samp):
         r, theta0, theta_star, t_star, done = carry
-        steps = torch.arange(n_samp, dtype=p.dtype, device=p.device)
+        steps = torch.arange(n_samp, dtype=theta0.dtype, device=p.device)
         thetas = theta0[..., None] + theta_res * steps        # (B, P, S)
         ys = p[:, :, None, :] + r[..., None, None] * torch.stack(
             [torch.cos(thetas), torch.sin(thetas)], -1)
@@ -337,7 +356,9 @@ def _take(a, idx):
 
 
 def _put(a, idx, v):
-    """Out-of-place scatter a[b, idx[b, k]] = v[b, k]."""
+    """Out-of-place scatter a[b, idx[b, k]] = v[b, k], v cast to a's
+    dtype (as JAX's ``.at[].set``)."""
+    v = v.to(a.dtype)
     if a.dim() == 2:
         return a.scatter(1, idx, v)
     return a.scatter(1, idx[..., None].expand(-1, -1, a.shape[-1]), v)

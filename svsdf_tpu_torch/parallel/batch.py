@@ -4,21 +4,31 @@ single-chip part).
 ``plan_batch`` and ``plan_batch_staged`` solve B independent back-end
 problems in lockstep: the JAX package vmaps a per-plan solve, this
 module runs the batch-native solver of utils/lbfgs.py on (B, ...)
-tensors. Multi-device sharding and the end-to-end batch are not ported
-yet.
+tensors. ``plan_batch_e2e`` adds the device wavefront front end and the
+certify-and-refine rounds in front of and behind the same solve.
+Multi-device sharding is not ported yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from svsdf_tpu_torch import resolve_device
 from svsdf_tpu_torch.ops import minco
-from svsdf_tpu_torch.ops.svsdf import SVSDFConfig
-from svsdf_tpu_torch.planner import back_end
+from svsdf_tpu_torch.ops.svsdf import (SVSDFConfig, linspace, linspace_1d,
+                                       svsdf_query)
+from svsdf_tpu_torch.planner import back_end, wavefront
 from svsdf_tpu_torch.utils import lbfgs
+from svsdf_tpu_torch.utils import trajectory as trj
 from svsdf_tpu_torch.utils.config import PlannerConfig
-from svsdf_tpu_torch.utils.transforms import forward_t
+from svsdf_tpu_torch.utils.transforms import backward_t, forward_t
+
+PI = math.pi
 
 
 def _to_device(x0_b, problems_b, device):
@@ -136,3 +146,342 @@ def _staged_solve(shape, cfg, stages, n, max_linesearch,
         x = res.x
     traj = _final_traj(x, head, tail, n)
     return x, res, traj
+
+
+# ---------------------------------------------------------------------------
+# batched end-to-end planning: device wavefront front end + staged solve
+# (+ certify-refine)
+# ---------------------------------------------------------------------------
+
+class E2EBatchResult(NamedTuple):
+    front_ok: torch.Tensor    # (B,) wavefront reached the goal
+    x: torch.Tensor           # (B, 4N-3) final decision vectors
+    cost: torch.Tensor        # (B,)
+    cert_min: torch.Tensor    # (B,) min SVSDF over harvested obstacles
+    head: torch.Tensor        # (B, 3, 3)
+    tail: torch.Tensor        # (B, 3, 3)
+    obstacles: torch.Tensor   # (B, M, 2)
+    coeffs: torch.Tensor      # (B, N, 6, 3)
+    durations: torch.Tensor   # (B, N)
+
+
+def _cumsum(x):
+    """Prefix sum along axis 1 accumulated in x's own dtype. The JAX
+    package sums float32 in float32, in order; torch's CPU cumsum
+    accumulates float32 in float64, so a host tensor goes through
+    numpy's sequential float32 sum. On the card, torch.cumsum."""
+    if x.is_cuda:
+        return torch.cumsum(x, dim=1)
+    return torch.from_numpy(np.cumsum(x.numpy(), axis=1, dtype=x.numpy().dtype))
+
+
+def _resample_path(path_ij, yaw_bins, length, n, resolution, xy_min,
+                   yaw_num, dtype):
+    """(B, L, 2) padded cells + bins -> head, tail (B, 3, 3) and the
+    (B, n+1, 3) states evenly spaced by arc length, yaw unwrapped.
+
+    As in the JAX package, the cell centres, yaws and arc lengths are
+    float32 (the front end's type) and the interpolation runs in
+    ``dtype``."""
+    nb, L = path_ij.shape[:2]
+    f32 = torch.float32
+    xy = xy_min + (path_ij.to(f32) + 0.5) * resolution       # (B, L, 2)
+    yaw_raw = 2.0 * PI * yaw_bins.to(f32) / yaw_num - PI
+    # unwrap along the path (the padding repeats the last entry: dy 0)
+    dy = yaw_raw[:, 1:] - yaw_raw[:, :-1]
+    dy = torch.remainder(dy + PI, 2.0 * PI) - PI
+    yaw = torch.cat([yaw_raw[:, :1],
+                     yaw_raw[:, :1] + _cumsum(dy)], dim=1)
+    dxy = xy[:, 1:] - xy[:, :-1]
+    seg = torch.sqrt(dxy[..., 0] * dxy[..., 0] + dxy[..., 1] * dxy[..., 1])
+    cum = torch.cat([torch.zeros_like(seg[:, :1]),
+                     _cumsum(seg)], dim=1).to(dtype)      # (B, L)
+    last = torch.clamp_max(length - 1, L - 1)
+    total = torch.gather(cum, 1, last[:, None].long())        # (B, 1)
+    t = linspace_1d(0.0, 1.0, n + 1, dtype, cum.device) * total
+    idx = torch.clamp(torch.searchsorted(cum.contiguous(), t.contiguous(),
+                                         right=True) - 1, 0, L - 2)
+    c0 = torch.gather(cum, 1, idx)
+    sg = torch.gather(seg, 1, idx)
+    w = torch.where(sg > 1e-9, (t - c0) / torch.clamp_min(sg, 1e-9).to(dtype),
+                    0.0)
+    w = torch.clamp(w, 0.0, 1.0)[..., None]                  # (B, n+1, 1)
+    take = lambda a, i: torch.gather(
+        a, 1, i[..., None].expand(-1, -1, a.shape[-1])).to(dtype)
+    pos = take(xy, idx) * (1 - w) + take(xy, idx + 1) * w
+    yw = (take(yaw[..., None], idx) * (1 - w)
+          + take(yaw[..., None], idx + 1) * w)
+    states = torch.cat([pos, yw], dim=-1)                    # (B, n+1, 3)
+    head = torch.zeros((nb, 3, 3), dtype=dtype, device=states.device)
+    tail = torch.zeros_like(head)
+    head[:, 0] = states[:, 0]
+    tail[:, 0] = states[:, -1]
+    return head, tail, states
+
+
+def _harvest_topm(occ_pts, states, m):
+    """(Mocc, 2) occupied cell centres -> for each plan the m closest to
+    its path states (head and tail included), nearest first. Ties go to
+    the lower index, as jax.lax.top_k orders them: grid centres tie in
+    distance all the time, and the order sets the penalty sum's
+    rounding."""
+    diff = occ_pts[None, :, None, :] - states[:, None, :, :2]  # (B, Mo, S, 2)
+    d = torch.sqrt(diff[..., 0] * diff[..., 0]
+                   + diff[..., 1] * diff[..., 1]).amin(dim=2)  # (B, Mo)
+    idx = torch.sort(d, dim=1, stable=True).indices[:, :m]
+    return occ_pts[idx]                                       # (B, m, 2)
+
+
+def _sweep_harvest(traj, occ_pts, n, n_obs):
+    """Obstacles nearest the trajectory's sweep at 4n+1 times."""
+    ts = linspace(traj.total_duration, 4 * n + 1)
+    sweep_xy, _, _ = trj.state_se2(traj, ts)
+    return _harvest_topm(occ_pts, sweep_xy, n_obs)
+
+
+def _cert_cfg(stages):
+    """Certificate oracle: the last stage's, with a dense float32 scan."""
+    last = stages[-1][0]
+    return dataclasses.replace(last, coarse_n=max(192, last.coarse_n),
+                               scan_dtype=None)
+
+
+def _certify_refine(shape, cfg, stages, n, max_linesearch, occ_pts, n_obs,
+                    x, head, tail, obstacles, refine_rounds: int,
+                    refine_iters: int, refine_esc: float,
+                    cert_margin: float, refine_fast: bool = True,
+                    cost0=None, refine_svs_cfg=None):
+    """Certify-and-refine rounds of B lanes (the batched counterpart of
+    the JAX package's ``lax.fori_loop`` body). Each round re-harvests the
+    n_obs occupied cells nearest the current sweep, certifies with a
+    dense float32 oracle, keeps the best iterate so far, nudges stalled
+    deep violators, escalates per-point penalty weights and the margin,
+    and re-solves the violating lanes warm-started.
+
+    JAX runs the whole round under ``lax.cond(best_cert >= margin)`` and
+    the solve under ``lax.cond(viol)``; vmapped, both become per-lane
+    selects. Here a lane that skips keeps its whole carry, round counter
+    included; the round is skipped on the host when no lane needs it,
+    and the solve runs only on the lanes that need it (lanes are
+    independent, so the values are the same). Returns (x, obstacles,
+    cost)."""
+    cert_cfg = _cert_cfg(stages)
+    solve_stage = stages[0] if refine_fast else stages[-1]
+    if refine_svs_cfg is not None:
+        svs_cfg = refine_svs_cfg
+    else:
+        tk = solve_stage[0].gsip_topk
+        svs_cfg = dataclasses.replace(
+            solve_stage[0], coarse_n=max(192, solve_stage[0].coarse_n),
+            scan_dtype=None, gsip_topk=max(8, tk) if tk else 0)
+    ls = solve_stage[2] if len(solve_stage) > 2 else max_linesearch
+    # refine solves keep the sequential weak-Wolfe search
+    frozen_ls = solve_stage[4] if len(solve_stage) > 4 else False
+    params = lbfgs.LBFGSParams(
+        mem_size=cfg.mem_size, max_iterations=refine_iters, g_epsilon=1e-7,
+        past=3, delta=cfg.relCostTol, max_linesearch=ls, ls_candidates=0)
+    nb, dtype, dev = x.shape[0], x.dtype, x.device
+    lanes = torch.arange(nb, device=dev)
+    m_obs = obstacles.shape[1]
+    cost = (torch.full((nb,), math.inf, dtype=dtype, device=dev)
+            if cost0 is None else cost0.to(dtype))
+    mult = torch.ones(nb, dtype=dtype, device=dev)
+    best_x = x
+    best_cert = torch.full((nb,), -math.inf, dtype=dtype, device=dev)
+    sdf_best = torch.zeros((nb, m_obs), dtype=dtype, device=dev)
+    grad_best = torch.zeros((nb, m_obs, 2), dtype=dtype, device=dev)
+    r = torch.zeros(nb, dtype=torch.long, device=dev)
+    sel = lbfgs._sel                          # per-lane torch.where
+
+    for _ in range(refine_rounds):
+        # whole-round skip once the best certificate clears the margin
+        need = ~(best_cert >= cert_margin)
+        if not bool(need.any()):
+            break
+        traj = _final_traj(x, head, tail, n)
+        with torch.no_grad():
+            obs_cand = _sweep_harvest(traj, occ_pts, n, n_obs)
+            q = svsdf_query(shape, traj, obs_cand, cert_cfg,
+                            with_inside=False)
+        cert_cand = q.sdf.amin(dim=1)
+        # best so far: every round judges the last solve against the
+        # best certificate and re-solves from the best iterate
+        better = cert_cand > best_cert
+        stalled = ~better
+        n_best_x = sel(better, x, best_x)
+        n_best_cert = torch.maximum(cert_cand, best_cert)
+        n_sdf_best = sel(better, q.sdf, sdf_best)
+        n_obstacles = sel(better, obs_cand, obstacles)
+        n_grad_best = sel(better, q.grad_world, grad_best)
+        xx = n_best_x
+        cert = n_best_cert
+        viol = cert < cert_margin
+        # stalled deep violators: push the waypoints nearest the worst
+        # point along -grad(swept SDF)
+        i_worst = torch.argmin(n_sdf_best, dim=1)
+        g = n_grad_best[lanes, i_worst]                      # (B, 2)
+        gn = torch.sqrt(g[:, 0] * g[:, 0] + g[:, 1] * g[:, 1])
+        push = torch.where(gn > 1e-6, (-cert + 0.1)
+                           / torch.clamp_min(gn, 1e-6), 0.0)
+        wps_b = xx[:, n:].reshape(nb, n - 1, 3)
+        wd = wps_b[..., :2] - n_obstacles[lanes, i_worst][:, None]
+        wdist = torch.sqrt(wd[..., 0] * wd[..., 0] + wd[..., 1] * wd[..., 1])
+        u = wdist / 3.0
+        fall = torch.exp(-(u * u))[..., None]                # (B, n-1, 1)
+        nudge_on = viol & stalled & (r > 0) & (cert < -0.15)
+        on = torch.where(nudge_on, 1.0, 0.0).to(dtype)
+        shove = (-g[:, None] * push[:, None, None] * fall
+                 * on[:, None, None])
+        wps_n = torch.cat([wps_b[..., :2] + shove, wps_b[..., 2:]], dim=-1)
+        xx = torch.cat([xx[:, :n], wps_n.reshape(nb, -1)], dim=1)
+        # per-point graded escalation: mult^1 deep inside, mult^0.5 at
+        # the margin, braking to base weight at margin + 0.3 m
+        n_mult = torch.where(viol, mult * refine_esc, mult)
+        severity = torch.clamp((cert_margin + 0.3 - n_sdf_best) / 0.6,
+                               0.0, 1.0)
+        wp = cfg.weight_p * torch.pow(n_mult[:, None], severity)
+        sh = cfg.safety_hor + torch.clamp_max(
+            0.05 * (r + 1).to(dtype), 0.1)[:, None] * (
+                n_sdf_best < cert_margin).to(dtype)
+        n_cost = cost
+        solve = need & viol
+        if bool(solve.any()):
+            idx = torch.nonzero(solve)[:, 0]
+            prob = back_end.BackEndProblem(head[idx], tail[idx],
+                                           n_obstacles[idx])
+            if frozen_ls:
+                full, frz = back_end.make_cost_pair_fn(
+                    shape, prob, cfg, svs_cfg, n, weight_p=wp[idx],
+                    safety_hor=sh[idx])
+                res = lbfgs.minimize(full, xx[idx], params, frozen=frz)
+            else:
+                cfn = back_end.make_cost_fn(shape, prob, cfg, svs_cfg, n,
+                                            weight_p=wp[idx],
+                                            safety_hor=sh[idx])
+                res = lbfgs.minimize(lbfgs.value_and_grad(cfn), xx[idx],
+                                     params)
+            xx = xx.index_copy(0, idx, res.x.to(dtype))
+            n_cost = cost.index_copy(0, idx, res.f.to(dtype))
+        # r counts executed rounds (skipped rounds do not escalate)
+        x = sel(need, xx, x)
+        cost = sel(need, n_cost, cost)
+        mult = sel(need, n_mult, mult)
+        best_x = sel(need, n_best_x, best_x)
+        best_cert = sel(need, n_best_cert, best_cert)
+        sdf_best = sel(need, n_sdf_best, sdf_best)
+        obstacles = sel(need, n_obstacles, obstacles)
+        grad_best = sel(need, n_grad_best, grad_best)
+        r = torch.where(need, r + 1, r)
+
+    # final judgment: if the last solve regressed, return the best iterate
+    traj = _final_traj(x, head, tail, n)
+    with torch.no_grad():
+        obs_f = _sweep_harvest(traj, occ_pts, n, n_obs)
+        cert_f = svsdf_query(shape, traj, obs_f, cert_cfg,
+                             with_inside=False).sdf.amin(dim=1)
+    keep = cert_f >= best_cert
+    return sel(keep, x, best_x), sel(keep, obs_f, obstacles), cost
+
+
+def _occ_points(occ_pts, dev, dtype):
+    """Obstacle candidates on ``dev``; a float array keeps its dtype."""
+    occ = torch.as_tensor(occ_pts, device=dev)
+    return occ if occ.is_floating_point() else occ.to(dtype)
+
+
+def front_end(feas, occ_pts, starts_ij, goals_ij, cfg: PlannerConfig,
+              n: int, n_obs: int, resolution, xy_min,
+              max_path_len: int | None = None, trans_feas=None,
+              yaw_weight: float = 0.25, cell_cost=None, device=None,
+              dtype=torch.float32):
+    """The front end of ``plan_batch_e2e``: wavefront field and path per
+    plan, arc-length resample, nearest-obstacle harvest and the initial
+    decision vector. Returns (front_ok (B,), head, tail (B, 3, 3),
+    obstacles (B, n_obs, 2), x0 (B, 4n-3))."""
+    dev = resolve_device(device)
+    occ_pts = _occ_points(occ_pts, dev, dtype)
+    feas = torch.as_tensor(feas, device=dev).bool()
+    starts = torch.as_tensor(starts_ij, device=dev).long()
+    goals = torch.as_tensor(goals_ij, device=dev).long()
+    xy_min = torch.as_tensor(xy_min, dtype=torch.float32, device=dev)
+    free = torch.any(feas, dim=0)
+    if max_path_len is None:
+        max_path_len = 4 * int(free.shape[0] + free.shape[1])
+    nb = starts.shape[0]
+    with torch.no_grad():
+        if trans_feas is not None:
+            # yaw in the search graph: transition-checked (cell, bin) moves
+            dist3 = wavefront.distance_field_3d(
+                feas, trans_feas, goals, yaw_weight,
+                max_iters=max_path_len + 8, cell_cost=cell_cost, device=dev)
+            path, yaws, length, ok = wavefront.extract_path_3d(
+                dist3, trans_feas, starts, max_path_len, yaw_weight,
+                cell_cost=cell_cost, device=dev)
+        else:
+            dist = wavefront.distance_field(free, goals,
+                                            max_iters=max_path_len + 8,
+                                            device=dev)
+            path, length, ok = wavefront.extract_path(dist, starts,
+                                                      max_path_len, device=dev)
+            # Viterbi DP yaw: globally minimal total rotation
+            yaws = wavefront.assign_yaws_dp(feas, path, device=dev)
+        head, tail, states = _resample_path(path, yaws, length, n,
+                                            float(resolution), xy_min,
+                                            feas.shape[0], dtype)
+        obs = _harvest_topm(occ_pts, states, n_obs)
+        tau = backward_t(torch.full((n,), cfg.inittime, dtype=torch.float32,
+                                    device=dev)).to(dtype)
+        x0 = torch.cat([tau.expand(nb, n), states[:, 1:-1].reshape(nb, -1)],
+                       dim=1)
+    return ok, head, tail, obs, x0
+
+
+def plan_batch_e2e(shape, feas, occ_pts, starts_ij, goals_ij,
+                   cfg: PlannerConfig, stages: tuple, n: int, n_obs: int,
+                   resolution, xy_min, max_linesearch: int = 2,
+                   max_path_len: int | None = None, refine_rounds: int = 0,
+                   refine_iters: int = 12, refine_esc: float = 4.0,
+                   cert_margin: float = 0.0, trans_feas=None,
+                   yaw_weight: float = 0.25, refine_fast: bool = False,
+                   cell_cost=None, refine_svs_cfg=None, device=None,
+                   dtype=torch.float32) -> E2EBatchResult:
+    """Batched end-to-end planning of B plans on one map: wavefront front
+    end (geodesic field, greedy descent, yaw bins), arc-length resample
+    to an n-piece spline, nearest-obstacle harvest, staged back-end
+    solve, optional certify-and-refine rounds, and a per-plan SVSDF
+    certificate.
+
+    feas (K, X, Y) bool yaw-bin feasibility; occ_pts (Mocc, 2) occupied
+    cell centres; starts_ij / goals_ij (B, 2) int cells. With
+    ``trans_feas`` (K, D, 8, X, Y) the front end searches (yaw bin, x, y)
+    states with transition-checked edges (and ``cell_cost`` (X, Y) route
+    shaping); without it, the 2-D field with the DP yaw assignment.
+    max_path_len bounds the path and the field's sweeps (4*(X+Y) by
+    default). refine_rounds > 0 runs ``_certify_refine``.
+
+    The trajectory, x, head and tail are in ``dtype``; the front end's
+    field and cell centres are float32; the obstacles keep occ_pts's
+    dtype, as in the JAX package. ``device=None`` runs on CUDA and raises
+    without it. Returns E2EBatchResult."""
+    dev = resolve_device(device)
+    occ = _occ_points(occ_pts, dev, dtype)
+    ok, head, tail, obs, x0 = front_end(
+        feas, occ, starts_ij, goals_ij, cfg, n, n_obs, resolution, xy_min,
+        max_path_len, trans_feas, yaw_weight, cell_cost, dev, dtype)
+    x, res, traj = _staged_solve(shape, cfg, stages, n, max_linesearch, x0,
+                                 head, tail, obs)
+    cost = res.f
+    if refine_rounds > 0:
+        x, obs, cost = _certify_refine(
+            shape, cfg, stages, n, max_linesearch, occ, n_obs, x, head,
+            tail, obs, refine_rounds, refine_iters, refine_esc, cert_margin,
+            refine_fast, cost0=cost, refine_svs_cfg=refine_svs_cfg)
+        traj = _final_traj(x, head, tail, n)
+        # final certificate over a fresh harvest at the refined sweep
+        with torch.no_grad():
+            obs = _sweep_harvest(traj, occ, n, n_obs)
+    with torch.no_grad():
+        cert = svsdf_query(shape, traj, obs, _cert_cfg(stages),
+                           with_inside=False).sdf.amin(dim=1)
+    return E2EBatchResult(ok, x, cost, cert, head, tail, obs, traj.coeffs,
+                          traj.durations)

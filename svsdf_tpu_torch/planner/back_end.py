@@ -15,7 +15,9 @@ whose autograd gradient is the envelope gradient.
 
 Cost functions take x (R, 4N-3) where R is the problem's plan count B
 or a multiple B*C of it (the parallel line search's candidates, rows
-lane-major); the problem tensors are repeated to match. The single-plan
+lane-major); the problem tensors, and ``weight_p`` / ``safety_hor`` when
+they are per-plan tensors (B, M) (the certify-refine escalation of
+parallel/batch.py), are repeated to match. The single-plan
 ``optimize`` and the LMBM solver are not ported yet.
 """
 
@@ -103,6 +105,14 @@ def _expand(problem: BackEndProblem, rows: int) -> BackEndProblem:
                             for a in problem))
 
 
+def _expand_weight(v, nb: int, rows: int):
+    """A per-plan weight tensor (B, ...) repeated to ``rows`` cost rows as
+    ``_expand`` repeats the problem; scalars pass through."""
+    if not torch.is_tensor(v) or v.dim() == 0 or rows == nb:
+        return v
+    return v.repeat_interleave(rows // nb, dim=0)
+
+
 def _traj(x, problem: BackEndProblem, n: int):
     tau = x[:, :n]
     wps = x[:, n:].reshape(x.shape[0], n - 1, 3)
@@ -114,12 +124,17 @@ def make_cost_fn(shape, problem: BackEndProblem, cfg: PlannerConfig,
                  svs_cfg: SVSDFConfig, n: int, mu: float = 0.01,
                  weight_p=None, safety_hor=None):
     """cost(x) -> (R,): the full cost, one oracle pass per call."""
+    nb = problem.head.shape[0]
+
     def cost(x):
-        prob = _expand(problem, x.shape[0])
+        rows = x.shape[0]
+        prob = _expand(problem, rows)
         traj, times = _traj(x, prob, n)
         pen, _ = svsdf_penalty(shape, traj, prob.obstacles, cfg, svs_cfg,
-                               mu=mu, weight_p=weight_p,
-                               safety_hor=safety_hor)
+                               mu=mu,
+                               weight_p=_expand_weight(weight_p, nb, rows),
+                               safety_hor=_expand_weight(safety_hor, nb,
+                                                         rows))
         return minco.energy(traj) + pen + cfg.rho * torch.sum(times, -1)
 
     return cost
@@ -135,6 +150,12 @@ def make_cost_pair_fn(shape, problem: BackEndProblem, cfg: PlannerConfig,
     """
     wp = cfg.weight_p if weight_p is None else weight_p
     sh = cfg.safety_hor if safety_hor is None else safety_hor
+    nb = problem.head.shape[0]
+
+    def _pen(traj, obstacles, st, rows):
+        return penalty_from_state(traj, obstacles, st,
+                                  _expand_weight(wp, nb, rows),
+                                  _expand_weight(sh, nb, rows), mu)
 
     def full(x):
         prob = _expand(problem, x.shape[0])
@@ -142,7 +163,7 @@ def make_cost_pair_fn(shape, problem: BackEndProblem, cfg: PlannerConfig,
             xr = x.detach().requires_grad_(True)
             traj, times = _traj(xr, prob, n)
             st, _ = svsdf_linearize(shape, traj, prob.obstacles, svs_cfg)
-            pen = penalty_from_state(traj, prob.obstacles, st, wp, sh, mu)
+            pen = _pen(traj, prob.obstacles, st, x.shape[0])
             f = minco.energy(traj) + pen + cfg.rho * torch.sum(times, -1)
             (g,) = torch.autograd.grad(f.sum(), xr)
         return f.detach(), g, st
@@ -150,7 +171,7 @@ def make_cost_pair_fn(shape, problem: BackEndProblem, cfg: PlannerConfig,
     def _frozen_f(x, st):
         prob = _expand(problem, x.shape[0])
         traj, times = _traj(x, prob, n)
-        pen = penalty_from_state(traj, prob.obstacles, st, wp, sh, mu)
+        pen = _pen(traj, prob.obstacles, st, x.shape[0])
         return minco.energy(traj) + pen + cfg.rho * torch.sum(times, -1)
 
     def frozen(x, st):

@@ -42,11 +42,18 @@ def _inputs(b, m, k, seed, device):
     ("sdHeart", (0.3, -0.2, 25.0), 1, 4096, 64),
     ("Circle", (0.3, -0.2, 25.0), 1, 2000, 37),
     ("sdArc", (0.3, -0.2, 25.0), 3, 1000, 37),
+    ("sdTrapezoid", (0.3, -0.2, 25.0), 3, 1000, 37),
+    ("sdRoundedX", (0.3, -0.2, 25.0), 3, 1000, 37),
+    ("bigX", (0.0, 0.0, 0.0), 3, 1000, 37),
+    ("sdMoon", (0.3, -0.2, 25.0), 3, 1000, 37),
+    ("Polygon", (0.0, 0.0, 0.0), 3, 1000, 37),
+    ("Polygon", (0.3, -0.2, 25.0), 512, 48, 192),
 ], ids=lambda c: f"{c[0]}-{c[2]}x{c[3]}x{c[4]}")
 def test_kernel_matches_plain_on_card(case):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
     name, pre, b, m, k = case
+    # Polygon: the fallback thin rectangle
     shape = shapes.make_shape(name, poly_params=pre)
     inp = _inputs(b, m, k, seed=k, device="cuda")
     before = cs.coarse_scan.launches
@@ -82,6 +89,19 @@ def test_kernel_reads_strided_pose_columns():
         assert torch.equal(a, b)
 
 
+@pytest.mark.cuda
+def test_kernel_polygon_with_own_vertices():
+    """A Polygon with its own vertex list: a concave pentagon."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    verts = [(2.0, 0.0), (0.5, 0.4), (-1.5, 1.5), (-1.0, -1.2), (0.6, -0.3)]
+    shape = shapes.make_shape("Polygon", vertices=verts)
+    inp = _inputs(4, 700, 50, seed=5, device="cuda")
+    for a, b in zip(cs.coarse_scan(shape, *inp),
+                    cs.coarse_scan_reference(shape, *inp)):
+        assert torch.equal(a, b)
+
+
 def _cpu_inputs():
     return _inputs(2, 5, 9, seed=0, device="cpu")
 
@@ -91,7 +111,7 @@ def test_wrapper_refuses_other_shapes_and_bfloat16():
     with pytest.raises(NotImplementedError):
         cs._launch(shapes.make_shape("star"), pts, xy, c, s, None)
     with pytest.raises(NotImplementedError):
-        cs._launch(shapes.make_shape("Polygon"), pts, xy, c, s, None)
+        cs._launch(shapes.make_shape("sdRhombus"), pts, xy, c, s, None)
     with pytest.raises(NotImplementedError):
         cs._launch(shapes.make_shape("sdHeart"), pts, xy, c, s, "bfloat16")
 

@@ -20,10 +20,17 @@ from pathlib import Path
 import pytest
 import torch
 
+import numpy as np
+
 from svsdf_tpu_torch import convert, resolve_device
 from svsdf_tpu_torch.bench import BENCH_MEM_SIZE, problem
 from svsdf_tpu_torch.models import shapes
+from svsdf_tpu_torch.ops import esdf
+from svsdf_tpu_torch.ops import kernels as kops
 from svsdf_tpu_torch.parallel import batch as pb
+from svsdf_tpu_torch.planner import wavefront
+from svsdf_tpu_torch.planner.online import OnlineReplanner
+from svsdf_tpu_torch.utils import fixtures
 from svsdf_tpu_torch.utils.config import PlannerConfig
 
 torch.set_num_threads(1)
@@ -90,4 +97,24 @@ def test_entry_points_default_to_cuda(monkeypatch):
         pb.plan_batch_staged(shapes.make_shape("sdHeart"), x, prob,
                              PlannerConfig(mem_size=BENCH_MEM_SIZE),
                              pb.default_stages(5, scan_dtype=None), 2)
+
+
+def test_e2e_entry_points_default_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sc = fixtures.synthetic_scenario("Circle")
+    feas = np.ones((4, 6, 5), bool)
+    occ = np.asarray([[0.5, 0.5]], np.float32)
+    cells = np.asarray([[1, 1]])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pb.plan_batch_e2e(shapes.make_shape("Circle"), feas, occ, cells,
+                          cells, sc.config, pb.default_stages(5), 2, 1, 1.0,
+                          np.zeros(2, np.float32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        OnlineReplanner(sc.config, sc.map_points)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kops.feasibility_maps(np.zeros((6, 5), np.uint8), feas)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        wavefront.distance_field(feas[0], cells)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        esdf.esdf(np.zeros((6, 5), np.uint8), 1.0)
 
