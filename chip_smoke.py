@@ -9,10 +9,11 @@ Phases, one line each (any failure raises and the exit code is not 0):
      build/kernels/ with nvcc (sm_90a);
   3. kernel vs plain: the coarse-scan kernel against its plain PyTorch
      version on the card, on the parity cases of the JAX package's
-     tests/test_pallas_svsdf.py for every shape body, then timed at the
-     main and e2e paths' shapes: the kernel's device time
+     tests/test_pallas_svsdf.py for every shape body (the 17 analytic
+     shapes and Polygon), then timed at the main and e2e paths' shapes
+     and every body at 512x64x96: the kernel's device time
      (torch.profiler), the wrapper's and the plain version's time per
-     call (CUDA events);
+     call (CUDA events), printed in the kernel table's JSON line;
   4. main path: plan_batch_staged at B=512, n=8, M=64, sdHeart,
      PlannerConfig(mem_size=8), default_stages(40, scan_dtype=None) —
      one warm-up, then 3 timed runs on fresh inputs, each closed by a
@@ -41,17 +42,34 @@ Phases, one line each (any failure raises and the exit code is not 0):
   8. checks of the new paths: plan_batch_e2e at B=32 with 2 refine
      rounds and the 3-D front end, and one synthetic_Polygon replan, each
      with the kernel and with the plain scan (cost and certificate within
-     1e-3 relative); feasibility_maps on the card against the host.
-The coarse-scan launches are counted over each path (phases 4, 6 and 7)
-from 0, and after each path the kernel is held bit for bit against its
-plain version, on seeded inputs, at every shape and (B, M, K) that path
-launched it at. Then the kernel table as one JSON line, the nvidia-smi
-line, and as the last line {"ok": true, "device": {...}}.
+     1e-3 relative); feasibility_maps on the card against the host;
+  9. the single-plan pipeline: Planner.plan with its defaults (100 mid-end
+     and 200 back-end iterations, 2 certify rounds, 3 retries, float32) on
+     each synthetic scenario at scripts/run_scenarios.py's SVSDF settings,
+     a first and a warm plan on one planner; each must succeed, certify,
+     end at the goal and pass tests/test_golden_scenarios.py's cost gate
+     (0.3x to 1.5x) against the JAX package's row of scenario_results.json,
+     printed beside it (cost and certificate; its times were taken on a
+     TPU or a CPU). Then one Circle plan under torch.profiler;
+ 10. the ten bodies without a scenario (sdUnevenCapsule, star, sdTunnel,
+     sdCutDisk, sdRhombus, sdHorseshoe, sdRoundedCross, sdOrientedVesica,
+     sdPie, sdPie2) on a path: one plan_batch_staged solve each at B=32
+     (bench problem(8, 64, 32), default_stages(40, scan_dtype=None)), each
+     with a finite median cost.
+Phase 3's parity cases cover every body, the ten of phase 10 included,
+each bit for bit, and time each body at 512x64x96 against its bound.
+The coarse-scan launches are counted over each path (phases 4, 6, 7, 9
+and each solve of 10) from 0, and after each path the kernel is held bit
+for bit against its plain version, on seeded inputs, at every shape and
+(B, M, K) that path launched it at. Then the kernel table as one JSON
+line, the nvidia-smi line, and as the last line
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -70,11 +88,17 @@ FP32_OPS_PER_S = 67e12
 #: operations per SDF evaluation of the coarse-scan kernel, counted
 #: from csrc/coarse_scan.cu (pose transform 11, running-min compare 1,
 #: body: Circle 6, sdHeart 31, sdArc 20, sdTrapezoid 36, sdRoundedX and
-#: bigX 15, sdMoon 35; sqrt, abs, min/max, compare and select count one
-#: each). A Polygon of E edges: 27 per edge plus 8 (OPS_POLYGON).
+#: bigX 15, sdMoon 35, sdUnevenCapsule 27, star 43, sdTunnel 29,
+#: sdCutDisk 31, sdRhombus 31, sdHorseshoe 34, sdRoundedCross 32,
+#: sdOrientedVesica 28, sdPie and sdPie2 30; sqrt, abs, min/max, compare
+#: and select count one each). A Polygon of E edges: 27 per edge plus 8
+#: (OPS_POLYGON).
 OPS_PER_EVAL = {"Circle": 18, "sdHeart": 43, "sdArc": 32,
                 "sdTrapezoid": 48, "sdRoundedX": 27, "bigX": 27,
-                "sdMoon": 47}
+                "sdMoon": 47, "sdUnevenCapsule": 39, "star": 55,
+                "sdTunnel": 41, "sdCutDisk": 43, "sdRhombus": 43,
+                "sdHorseshoe": 46, "sdRoundedCross": 44,
+                "sdOrientedVesica": 40, "sdPie": 42, "sdPie2": 42}
 OPS_POLYGON = (27, 8 + 12)
 
 
@@ -92,8 +116,24 @@ MAIN_SHAPES = ((512, 64, 96), (512, 64, 128), (512, 12, 32), (512, 36, 32),
 #: (B, M, K) of the end-to-end path's scans with 48 obstacles, timed in
 #: phase 3: the fast stage, the polish stage, the certificate at K=192
 E2E_SHAPES = ((512, 48, 96), (512, 48, 128), (512, 48, 192))
-#: the shapes whose kernel bodies the synthetic scenarios need
-NEW_SHAPES = ("sdTrapezoid", "sdRoundedX", "bigX", "sdMoon", "Polygon")
+#: the bodies phase 3 checks on its first parity cases; every other body
+#: runs the same cases after them
+FIRST_BODIES = ("sdHeart", "Circle", "sdArc")
+#: the bodies without a synthetic scenario: phase 10 drives each through
+#: a staged solve
+STAGED_BODIES = ("sdUnevenCapsule", "star", "sdTunnel", "sdCutDisk",
+                 "sdRhombus", "sdHorseshoe", "sdRoundedCross",
+                 "sdOrientedVesica", "sdPie", "sdPie2")
+#: (B, M, K) at which phase 3 times every body
+BODY_TIME_SHAPE = (512, 64, 96)
+#: scripts/run_scenarios.py's SVSDF settings, with which the JAX package
+#: recorded scenario_results.json (gsip_fori is accepted and ignored)
+RUN_SCENARIOS_SVS = dict(coarse_n=128, refine_rounds=2, gsip_iters=6,
+                         gsip_coarse_n=64, gsip_refine_rounds=1,
+                         gsip_topk=16, refine_interp_n=512, gsip_fori=True)
+#: tests/test_golden_scenarios.py's cost gate against the recorded row:
+#: lo * recorded < cost < hi * recorded
+COST_GATE = (0.3, 1.5)
 KERNEL_NAME = "coarse_scan_kernel"
 
 
@@ -298,11 +338,14 @@ def main() -> int:
     from svsdf_tpu_torch.models import shapes
     from svsdf_tpu_torch.ops import cuda_svsdf as cs
     from svsdf_tpu_torch.ops import kernels as kops
+    from svsdf_tpu_torch.ops.svsdf import SVSDFConfig
     from svsdf_tpu_torch.parallel import batch as pb
     from svsdf_tpu_torch.planner import back_end
     from svsdf_tpu_torch.planner.online import (OnlineReplanner,
                                                 front_end_maps)
+    from svsdf_tpu_torch.planner.pipeline import Planner
     from svsdf_tpu_torch.utils import fixtures, mapgen
+    from svsdf_tpu_torch.utils import trajectory as trj
     from svsdf_tpu_torch.utils.config import PlannerConfig
 
     card = smi_line()
@@ -321,27 +364,37 @@ def main() -> int:
 
     # -- 3. kernel vs plain on the card --------------------------------
     cases = []
-    for name in ("sdHeart", "Circle", "sdArc"):
+    for name in FIRST_BODIES:
         for pp in ((0.0, 0.0, 0.0), (0.3, -0.2, 25.0)):
             shape = shapes.make_shape(name, poly_params=pp)
             for m in (7, 1024, 2000):
                 cases.append((shape, 1, m, 37, 1e-5))
     cases.append((shapes.make_shape("sdHeart"), 1, 4096, 64, 1e-4))
     heart = shapes.make_shape("sdHeart")
-    # the new bodies (Polygon: the fallback thin rectangle); the paths'
+    # every other body (Polygon: the fallback thin rectangle); the paths'
     # own shapes are checked after each path (ShapeLog.check)
-    for name in NEW_SHAPES:
+    all_bodies = tuple(shapes.shape_names()) + ("Polygon",)
+    for name in all_bodies:
+        if name in FIRST_BODIES:
+            continue
         for pp in ((0.0, 0.0, 0.0), (0.3, -0.2, 25.0)):
             shape = shapes.make_shape(name, poly_params=pp)
             for m in (7, 1024, 2000):
                 cases.append((shape, 1, m, 37, 1e-5))
     worst = 0.0
+    per_body = {}
     for i, (shape, b, m, k, atol) in enumerate(cases):
         err, bitwise = compare_scan(torch, cs, shape,
                                     scan_inputs(torch, b, m, k, seed=i), atol)
         worst = max(worst, err)
-        say("scan", shape=shape.name, pre=[shape.tx, shape.ty, shape.yaw0],
-            B=b, M=m, K=k, atol=atol, max_abs_err=err, bitwise=bitwise)
+        row = per_body.setdefault(shape.name, {"cases": [], "max_abs_err":
+                                               0.0, "bitwise": True})
+        row["cases"].append(f"{b}x{m}x{k} pre={shape.tx},{shape.ty},"
+                            f"{shape.yaw0:.4f}")
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["bitwise"] = row["bitwise"] and bitwise
+    for name, row in per_body.items():     # one line per body
+        say("scan", shape=name, **row)
     timings = []
     for path, (b, m, k) in ([("main", sh) for sh in MAIN_SHAPES]
                             + [("e2e", sh) for sh in E2E_SHAPES]):
@@ -358,7 +411,22 @@ def main() -> int:
                         else "events", "wrapper_ms": wrapper,
                         "profiled_launches": seen, "plain_ms": plain,
                         "bound_ms": bound, "bound_by": by})
-        say("scan_time", **timings[-1])
+    # every body at one shape: kernel (profiler), plain (events), bound
+    body_times = []
+    inp = scan_inputs(torch, *BODY_TIME_SHAPE, seed=98)
+    for name in all_bodies:
+        shape = shapes.make_shape(name)
+        kernel, seen = device_ms(torch, lambda: cs.coarse_scan(shape, *inp))
+        wrapper = time_ms(torch, lambda: cs.coarse_scan(shape, *inp))
+        plain = time_ms(torch, lambda: cs.coarse_scan_reference(shape, *inp),
+                        reps=50)
+        bound, by = scan_bound_ms(shape, *BODY_TIME_SHAPE)
+        body_times.append({"shape": name, "ops_per_eval": ops_per_eval(shape),
+                           "ms": kernel if kernel is not None else wrapper,
+                           "ms_source": "profiler" if kernel is not None
+                           else "events", "wrapper_ms": wrapper,
+                           "plain_ms": plain, "bound_ms": bound,
+                           "bound_by": by})
 
     # -- 4. main path --------------------------------------------------
     n, m_obs, batch, iters = 8, 64, 512, 40
@@ -391,9 +459,10 @@ def main() -> int:
             and out.traj.coeffs.shape == (batch, n, 6, 3)):
         raise AssertionError("main path output not finite / wrong shape")
     wall = statistics.median(walls)
+    main_cost = statistics.median(costs)
     say("main_path", B=batch, n=n, M=m_obs, iters=iters, wall_s=walls,
         median_wall_s=wall, plans_per_s=batch / wall,
-        median_final_cost=statistics.median(costs),
+        median_final_cost=main_cost,
         mean_n_iters_last_stage=statistics.mean(n_iters),
         kernel_launches=launches, launches_per_solve=launches / 4)
     # where one solve's time goes: device busy share and kernel counts
@@ -611,6 +680,84 @@ def main() -> int:
         replan_exact=r_k.cost == r_p.cost and r_k.cert_min == r_p.cert_min,
         feasibility_equal=True, feasible_cells=int(feas_d.sum()))
 
+    # -- 9. single-plan pipeline ---------------------------------------
+    svs_rs = SVSDFConfig(**RUN_SCENARIOS_SVS)
+    with open(os.path.join(ROOT, "scenario_results.json")) as f:
+        recorded = {r["name"]: r for r in json.load(f)}
+    lo, hi = COST_GATE
+    cs.coarse_scan.launches = 0
+    with ShapeLog(cs) as plan_log:
+        for name in fixtures.list_synthetic_scenarios():
+            sc = fixtures.synthetic_scenario(name)
+            planner, build_s = timed(torch, lambda: Planner(
+                sc.config, sc.map_points, svs_cfg=svs_rs))
+            rec = recorded[sc.name]
+            runs = []
+            for _ in range(2):          # first plan, then a warm one
+                res, wall = timed(torch, lambda: planner.plan(sc.start,
+                                                              sc.goal))
+                ok = bool(res.success and res.certified
+                          and lo * rec["final_cost"] < res.final_cost
+                          < hi * rec["final_cost"])
+                end = trj.pos(res.traj, res.traj.total_duration[:, None])
+                goal_err = float((end[0, 0, :2].cpu()
+                                  - torch.as_tensor(sc.goal[:2])).norm())
+                if not (ok and goal_err < 0.05
+                        and torch.isfinite(res.traj.coeffs).all()):
+                    raise AssertionError(
+                        f"{sc.name}: plan success={res.success} certified="
+                        f"{res.certified} cost={res.final_cost} (recorded "
+                        f"{rec['final_cost']}) goal_err={goal_err}")
+                runs.append((res, wall, goal_err))
+            (res, first_s, goal_err), (warm, warm_s, _) = runs
+            if name == "Circle":        # the scenario that runs a back end
+                profiled = (planner, sc)
+            say("planner", scenario=sc.name, build_s=build_s,
+                first_plan_s=first_s, warm_plan_s=warm_s,
+                timings={k: v for k, v in res.timings.items()
+                         if k != "attempt_log"},
+                warm_timings={k: v for k, v in warm.timings.items()
+                              if k != "attempt_log"},
+                astar_len=len(res.astar_path), success=res.success,
+                certified=res.certified, min_cert_sdf=res.min_cert_sdf,
+                mid_cost=res.mid_cost, final_cost=res.final_cost,
+                warm_final_cost=warm.final_cost, goal_err_m=goal_err,
+                recorded={k: rec.get(k) for k in (
+                    "success", "certified", "min_cert_sdf", "astar_len",
+                    "mid_cost", "final_cost")},
+                cost_gate=[lo * rec["final_cost"], hi * rec["final_cost"]])
+    planner_launches = cs.coarse_scan.launches
+    if planner_launches <= 0:
+        raise AssertionError("the planner path launched no coarse-scan kernel")
+    say("planner_launches", kernel_launches=planner_launches)
+    worst = max(worst, plan_log.check(torch, "planner", seed=4000))
+    planner, sc = profiled
+    say("planner_profile", scenario=sc.name, **profile_solve(
+        torch, lambda: planner.plan(sc.start, sc.goal)))
+
+    # -- 10. the other bodies on a staged solve ------------------------
+    h10, t10, o10, x10 = problem(8, 64, 32)
+    prob10, x10_t = convert.problem_from_numpy(h10, t10, o10, x10)
+    body_launches = {}
+    body_logs = {}
+    for i, name in enumerate(STAGED_BODIES):
+        shape = shapes.make_shape(name)
+        cs.coarse_scan.launches = 0
+        with ShapeLog(cs) as body_log:
+            out, wall = timed(torch, lambda: pb.plan_batch_staged(
+                shape, x10_t, prob10, cfg, stages, 8))
+        body_launches[name] = cs.coarse_scan.launches
+        body_logs[name] = body_log.summary()
+        med = float(out.cost.median())
+        if body_launches[name] <= 0 or not (
+                math.isfinite(med) and torch.isfinite(out.opt_x).all()):
+            raise AssertionError(f"{name}: staged solve launches "
+                                 f"{body_launches[name]}, median cost {med}")
+        say("body_path", shape=name, B=32, wall_s=wall, median_cost=med,
+            kernel_launches=body_launches[name])
+        worst = max(worst, body_log.check(torch, f"staged {name}",
+                                          seed=5000 + 100 * i))
+
     main_t = timings[0]
     print(json.dumps({"kernels": [{
         "name": "svsdf_coarse_scan",
@@ -625,9 +772,16 @@ def main() -> int:
         "bound_by": main_t["bound_by"],
         "library_ms": None,
         "launches_by_path": {"main": launches, "e2e": e2e_launches,
-                             "replan": replan_launches},
+                             "replan": replan_launches,
+                             "planner": planner_launches,
+                             "staged_bodies": body_launches},
         "shapes_ran": {"main": main_log.summary(), "e2e": e2e_log.summary(),
-                       "replan": replan_log.summary()},
+                       "replan": replan_log.summary(),
+                       "planner": plan_log.summary(),
+                       "staged_bodies": body_logs},
+        "main_path_median_cost": main_cost,
+        "bodies": body_times,
+        "scan_times": timings,
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,6 +19,7 @@ import torch
 from svsdf_tpu_torch import resolve_device
 from svsdf_tpu_torch.models import shapes
 from svsdf_tpu_torch.ops.svsdf import SVSDFConfig
+from svsdf_tpu_torch.planner.astar import AstarResult
 from svsdf_tpu_torch.planner.back_end import BackEndProblem
 from svsdf_tpu_torch.utils.config import PlannerConfig
 from svsdf_tpu_torch.utils.fixtures import Scenario
@@ -27,7 +28,7 @@ from svsdf_tpu_torch.utils.trajectory import Trajectory
 
 
 def _tensor(a, device, dtype):
-    return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
 
 def problem_from_numpy(head, tail, obstacles, x0, device=None,
@@ -60,6 +61,8 @@ def _from_dict(cls, d: dict):
 
 
 def svsdf_config_from_dict(d: dict) -> SVSDFConfig:
+    """An SVSDFConfig from ``dataclasses.asdict`` of the JAX side's (e.g.
+    scripts/run_scenarios.py's, ``gsip_fori`` included)."""
     return _from_dict(SVSDFConfig, d)
 
 
@@ -103,3 +106,21 @@ def front_end_maps_from_numpy(feas, occ_pts, trans_feas=None,
     as_f32 = lambda a: None if a is None else _tensor(a, dev, torch.float32)
     return (as_bool(feas), as_f32(occ_pts), as_bool(trans_feas),
             as_f32(cell_cost))
+
+
+def astar_result_from_numpy(success, path, yaw_bins,
+                            expansions) -> AstarResult:
+    """An A* result of the JAX package (path (L, 3), yaw bins (L,),
+    expansion count) in the port's form."""
+    return AstarResult(bool(success), np.asarray(path, np.float64),
+                       np.asarray(yaw_bins).astype(int), int(expansions))
+
+
+def warm_start_from_numpy(opt_x, head, tail, device=None,
+                          dtype=torch.float32):
+    """A mid-end warm start of one plan (opt_x (4N-3,), head and tail
+    (3, 3)) -> (opt_x (1, 4N-3), head (1, 3, 3), tail (1, 3, 3)) tensors,
+    the leading plan axis of the port's mid and back ends."""
+    dev = resolve_device(device)
+    return tuple(_tensor(np.asarray(a)[None], dev, dtype)
+                 for a in (opt_x, head, tail))

@@ -17,20 +17,27 @@ Cost functions take x (R, 4N-3) where R is the problem's plan count B
 or a multiple B*C of it (the parallel line search's candidates, rows
 lane-major); the problem tensors, and ``weight_p`` / ``safety_hor`` when
 they are per-plan tensors (B, M) (the certify-refine escalation of
-parallel/batch.py), are repeated to match. The single-plan
-``optimize`` and the LMBM solver are not ported yet.
+parallel/batch.py), are repeated to match.
+
+``optimize`` is the single-plan pipeline's solve: the hinge-smoothing
+continuation inside one ``lbfgs.minimize_scheduled`` loop with the
+weak-Wolfe line search on the full cost. The LMBM solver is not ported
+yet (ROADMAP A16).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from svsdf_tpu_torch import resolve_device
 from svsdf_tpu_torch.ops import minco
-from svsdf_tpu_torch.ops.svsdf import SVSDFConfig, svsdf_query
+from svsdf_tpu_torch.ops.svsdf import DEFAULT_CONFIG, SVSDFConfig, svsdf_query
 from svsdf_tpu_torch.utils import trajectory as trj
 from svsdf_tpu_torch.utils.config import PlannerConfig
+from svsdf_tpu_torch.utils import lbfgs
 from svsdf_tpu_torch.utils.lbfgs import value_and_grad
 from svsdf_tpu_torch.utils.transforms import forward_t, smoothed_l1
 
@@ -187,3 +194,105 @@ class BackEndResult(NamedTuple):
     n_iters: torch.Tensor
     converged: torch.Tensor
 
+
+
+#: upper bound on the scheduled solve's iterations (the budget itself is
+#: max_iters plus the earlier stages')
+_MAX_ITER_BOUND = 1024
+
+
+def check_solver(solver: str) -> None:
+    """Only the weak-Wolfe L-BFGS solve is ported."""
+    if solver != "lbfgs":
+        raise NotImplementedError(
+            f"back-end solver {solver!r} is not ported yet (LMBM: ROADMAP "
+            "A16); use solver='lbfgs'")
+
+
+def _f32(v, dtype, dev):
+    """A Python scalar as the JAX package passes it: rounded to float32,
+    then used in the working type."""
+    return torch.tensor(v, dtype=torch.float32).to(device=dev, dtype=dtype)
+
+
+def _run(shape, x0, problem: BackEndProblem, cfg: PlannerConfig,
+         svs_cfg: SVSDFConfig, n: int, mu_values, stage_bounds,
+         total_iters: int, weight_p, safety_hor, live: bool = False):
+    """Smoothing-continuation solve: the hinge smoothing mu anneals
+    from wide to the reference's 0.01 inside one scheduled L-BFGS loop,
+    mu picked per lane from its iteration counter and the stage bounds.
+    The wide stages give the nonsmooth landscape a broad basin (the role
+    LMBM's bundle plays in the reference) before the sharp stage
+    polishes."""
+
+    def cost(x, it):
+        stage = torch.sum(it[:, None] >= stage_bounds[None], dim=1)
+        mu = mu_values[stage][:, None]
+        prob = _expand(problem, x.shape[0])
+        traj, times = _traj(x, prob, n)
+        pen, _ = svsdf_penalty(shape, traj, prob.obstacles, cfg, svs_cfg,
+                               mu=mu, weight_p=weight_p,
+                               safety_hor=safety_hor)
+        return minco.energy(traj) + pen + cfg.rho * torch.sum(times, -1)
+
+    def vg(x, it):
+        return value_and_grad(lambda xx: cost(xx, it))(x)
+
+    params = lbfgs.LBFGSParams(
+        mem_size=cfg.mem_size, max_iterations=_MAX_ITER_BOUND,
+        g_epsilon=max(cfg.g_epsilon, 1e-7), past=3,
+        delta=max(cfg.relCostTol, getattr(cfg, "back_rel_stall", 0.0)),
+        max_linesearch=getattr(cfg, "back_max_ls", 40), live=live)
+    res = lbfgs.minimize_scheduled(vg, x0, params, n_iters=total_iters,
+                                   stage_bounds=stage_bounds)
+    times = forward_t(res.x[:, :n])
+    wps = res.x[:, n:].reshape(x0.shape[0], n - 1, 3)
+    with torch.no_grad():
+        traj = minco.solve(times, problem.head, problem.tail, wps)
+    return BackEndResult(traj, res.x, res.f, res.n_iters, res.converged)
+
+
+def optimize(shape, head, tail, obstacles, opt_x,
+             cfg: PlannerConfig = PlannerConfig(),
+             svs_cfg: SVSDFConfig = DEFAULT_CONFIG,
+             max_iters: int = 200,
+             mu_schedule: tuple = (0.5, 0.1, 0.01),
+             solver: str = "lbfgs",
+             weight_p=None, safety_hor=None,
+             live: bool = False, device=None,
+             dtype=torch.float32) -> BackEndResult:
+    """Run the back end from the mid end's warm start on B plans
+    (optimize_traj_lmbm, back_end_optimizer.cpp:3-96).
+
+    head/tail (B, 3, 3); obstacles (B, M, >=2), z/yaw dropped
+    (pos_eva(2) = 0, back_end_optimizer.hpp:792); opt_x (B, 4N-3).
+    Arrays or tensors, moved to ``device`` (None: CUDA) in ``dtype``.
+    weight_p / safety_hor override the config values (the certify-refine
+    escalation). They and the mu ladder are rounded to float32, as the
+    JAX package passes them.
+
+    The mu ladder is padded to 3 stage slots with zero-length stages;
+    every stage but the last gets max(max_iters // 2, 40) iterations, the
+    last max_iters."""
+    check_solver(solver)
+    dev = resolve_device(device)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
+    opt_x = t(opt_x)
+    n = (opt_x.shape[1] + 3) // 4
+    problem = BackEndProblem(t(head), t(tail), t(obstacles)[..., :2])
+    wp = _f32(cfg.weight_p if weight_p is None else weight_p, dtype, dev)
+    sh = _f32(cfg.safety_hor if safety_hor is None else safety_hor, dtype,
+              dev)
+    n_stage_slots = 3
+    mus = list(mu_schedule)[:n_stage_slots]
+    early = max(max_iters // 2, 40)
+    iters = [early] * (len(mus) - 1) + [max_iters]
+    while len(mus) < n_stage_slots:       # pad with zero-length stages
+        mus.append(mus[-1])
+        iters.append(0)
+    bounds = torch.as_tensor(np.cumsum(iters[:-1]), dtype=torch.long,
+                             device=dev)
+    total = int(np.sum(iters))
+    mu_values = _f32(mus, dtype, dev)
+    return _run(shape, opt_x, problem, cfg, svs_cfg, n, mu_values, bounds,
+                total, wp, sh, live)

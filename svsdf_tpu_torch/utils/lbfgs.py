@@ -8,7 +8,14 @@ active, merging each step into the carry with
 ``while_loop``, so each lane follows exactly its own single-lane
 iterates. The loop tests the done mask on the host once per iteration.
 
-Objective contract:
+``minimize_scheduled`` adds the continuation hooks of the JAX package's
+solver of the same name (an iteration budget, stage bounds the solver
+jumps to on convergence, the lane's iteration counter passed to the
+objective) and its live debug-bus wire; ``minimize`` is its special
+case without them.
+
+Objective contract (``minimize``; ``minimize_scheduled`` passes each
+row's iteration counter as a second argument):
   * ``fun(x) -> (f (R,), g (R, n))`` or, with ``frozen``,
     ``fun(x) -> (f, g, state)`` where ``state`` is a tuple/NamedTuple
     of tensors with a leading lane axis;
@@ -45,6 +52,10 @@ class LBFGSParams:
     #: inverse-Hessian apply: compact representation (None -> True, the
     #: JAX package's default) or the two-loop recursion (False)
     compact: bool | None = None
+    #: report every iteration (it, f, ||g||_inf) to the debug bus,
+    #: service its pause/step gate and stop on its stop flag (the
+    #: reference's DBSendOptiStep live wire); single solves only
+    live: bool = False
 
 
 class LBFGSResult(NamedTuple):
@@ -240,6 +251,45 @@ def minimize(fun: Callable, x0, params: LBFGSParams = LBFGSParams(),
     the line search runs on the surrogate at the carried state and the
     true cost is evaluated once per iteration, at the chosen trial
     point, behind an Armijo gate on the true cost."""
+    if frozen is None:
+        return minimize_scheduled(lambda x, it: fun(x), x0, params)
+    return minimize_scheduled(lambda x, it: fun(x), x0, params,
+                              frozen=lambda x, it, st: frozen(x, st))
+
+
+def _live_observer(it, f, gnorm) -> bool:
+    """Host side of LBFGSParams.live: record the iteration on the debug
+    bus, service its pause/step gate, and report whether a stop was
+    requested."""
+    from svsdf_tpu_torch.utils.debugbus import BUS
+
+    BUS.log_scalar("opti_cost", float(f), step=int(it))
+    BUS.log_scalar("opti_gnorm", float(gnorm), step=int(it))
+    BUS.wait_if_paused()
+    return BUS.stop_requested
+
+
+def minimize_scheduled(fun: Callable, x0,
+                       params: LBFGSParams = LBFGSParams(),
+                       n_iters=None, stage_bounds=None,
+                       frozen: Callable | None = None) -> LBFGSResult:
+    """Minimize fun(x, it) -> (f, g) for a batch x0 (B, n), where ``it``
+    (R,) is each row's lane iteration counter: the hook for continuation
+    schedules (the back end's hinge-smoothing mu ladder) to live inside
+    one optimizer loop.
+
+    n_iters: optional iteration budget (<= params.max_iterations).
+
+    stage_bounds: optional (S,) iteration indices where the objective
+    changes. A lane that converges before the last bound jumps to the
+    next bound (entering the next stage) instead of finishing, clears
+    its stall and null-step state and re-evaluates f and g there.
+    Curvature pairs carry across stages.
+
+    frozen: optional surrogate (x, it, state) -> (f~, g~); fun is then
+    (x, it) -> (f, g, state), as in ``minimize``. With ``params.live``
+    the debug bus sees every iteration of lane 0 (a single-solve path,
+    B = 1) and its stop flag ends the solve."""
     p = params
     nb, n = x0.shape
     m = p.mem_size
@@ -248,12 +298,21 @@ def minimize(fun: Callable, x0, params: LBFGSParams = LBFGSParams(),
     apply_h = compact_apply if use_compact else two_loop
     search = (_parallel_line_search if p.ls_candidates > 0
               else _weak_wolfe_search)
+    if p.live and nb != 1:
+        raise ValueError("live=True observes a single solve (B = 1)")
+    total = p.max_iterations if n_iters is None else int(n_iters)
+    bounds = (None if stage_bounds is None else torch.as_tensor(
+        stage_bounds, dtype=torch.long, device=dev).reshape(-1))
 
+    def rows(it, xx):
+        return _tree_repeat(it, xx.shape[0] // nb)
+
+    it = torch.zeros(nb, dtype=torch.long, device=dev)
     if frozen is None:
-        f, g = fun(x0)
+        f, g = fun(x0, it)
         fro = None
     else:
-        f, g, fro = fun(x0)
+        f, g, fro = fun(x0, it)
     x = x0
     ga = g
     s_hist = torch.zeros((nb, m, n), dtype=dtype, device=dev)
@@ -264,13 +323,12 @@ def minimize(fun: Callable, x0, params: LBFGSParams = LBFGSParams(),
     past_f = torch.full((nb, p.past), math.inf, dtype=dtype, device=dev)
     past_f[:, 0] = f
     nulls = torch.zeros(nb, dtype=torch.long, device=dev)
-    it = torch.zeros(nb, dtype=torch.long, device=dev)
     done = torch.amax(torch.abs(g), dim=1) < p.g_epsilon
     converged = done.clone()
     lanes = torch.arange(nb, device=dev)
 
     while True:
-        active = ~done & (it < p.max_iterations)
+        active = ~done & (it < total) & (it < p.max_iterations)
         if not bool(torch.any(active)):
             break
         d = -apply_h(ga, s_hist, y_hist, rho, n_corr, head)
@@ -278,19 +336,22 @@ def minimize(fun: Callable, x0, params: LBFGSParams = LBFGSParams(),
         d = _sel(dg < 0, d, -ga)
         t0 = torch.where(n_corr == 0, 1.0 / torch.clamp_min(_norm(d), 1.0),
                          torch.full_like(dg, p.init_step))
+        it_c = it
         if frozen is None:
             t, x_new, f_new, g_new, ok, _, g_trial = search(
-                fun, x, f, ga, d, p, t0, active)
+                lambda xt: fun(xt, rows(it_c, xt)), x, f, ga, d, p, t0,
+                active)
             fro_new = fro
         else:
             fro_c = fro
 
             def fro_fun(xt):
-                return frozen(xt, _tree_repeat(fro_c, xt.shape[0] // nb))
+                return frozen(xt, rows(it_c, xt),
+                              _tree_repeat(fro_c, xt.shape[0] // nb))
 
             t, _, _, _, _, x_trial, _ = search(
                 fro_fun, x, f, ga, d, p, t0, active)
-            f_t, g_t, fro_t = fun(x_trial)
+            f_t, g_t, fro_t = fun(x_trial, it_c)
             ok = f_t <= f + p.f_dec_coeff * t * _dot(ga, d)
             x_new = _sel(ok, x_trial, x)
             f_new = torch.where(ok, f_t, f)
@@ -339,6 +400,35 @@ def minimize(fun: Callable, x0, params: LBFGSParams = LBFGSParams(),
         past_n = past_f.clone()
         past_n[lanes, slot] = f_new
         g_at_x = _sel(ok, g_new, g)
+        it_n = it + 1
+        done_n = finished
+        if bounds is not None:
+            # a lane that finished a stage early jumps to the next stage
+            # bound (the objective changes there) with cleared stall and
+            # null state and f, g re-evaluated under the new objective;
+            # only finishing the last stage ends its solve
+            nxt = torch.amin(torch.where(bounds[None] > it[:, None],
+                                         bounds[None],
+                                         torch.full_like(bounds[None],
+                                                         total)), dim=1)
+            jump = finished & (nxt < total)
+            it_n = torch.where(jump, nxt, it_n)
+            nulls_n = torch.where(jump, torch.zeros_like(nulls_n), nulls_n)
+            past_n = _sel(jump, torch.full_like(past_n, math.inf), past_n)
+            done_n = finished & ~jump
+            if bool(torch.any(jump & active)):
+                if frozen is None:
+                    f_j, g_j = fun(x_new, nxt)
+                else:
+                    f_j, g_j, fro_j = fun(x_new, nxt)
+                    fro_new = _tree_sel(jump, fro_j, fro_new)
+                f_new = torch.where(jump, f_j, f_new)
+                g_at_x = _sel(jump, g_j, g_at_x)
+                ga_n = _sel(jump, g_j, ga_n)
+        if p.live:
+            stop = _live_observer(it[0], f_new[0],
+                                  torch.amax(torch.abs(ga_n[0])))
+            done_n = done_n | stop
 
         x = _sel(active, x_new, x)
         f = torch.where(active, f_new, f)
@@ -352,8 +442,8 @@ def minimize(fun: Callable, x0, params: LBFGSParams = LBFGSParams(),
         head = torch.where(active, head_n, head)
         past_f = _sel(active, past_n, past_f)
         nulls = torch.where(active, nulls_n, nulls)
-        it = torch.where(active, it + 1, it)
-        done = torch.where(active, finished, done)
+        it = torch.where(active, it_n, it)
+        done = torch.where(active, done_n, done)
         converged = torch.where(active, conv_n, converged)
 
     return LBFGSResult(x, f, g, it, converged)

@@ -10,12 +10,14 @@ Query times carry the same leading plan axis: t (B, ...). The local
 time stays differentiable with respect to the durations: the piece
 index and the clip bound are taken from detached durations (``detach``
 where JAX uses ``stop_gradient``), so d s / d T_j = -1 for j < i.
+``max_rate`` and its two forms run on the host in numpy.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -144,6 +146,18 @@ def vel(traj, t):
     return eval_at(traj, t, 1)
 
 
+def acc(traj, t):
+    return eval_at(traj, t, 2)
+
+
+def jerk(traj, t):
+    return eval_at(traj, t, 3)
+
+
+def snap(traj, t):
+    return eval_at(traj, t, 4)
+
+
 def state_se2(traj: Trajectory, t):
     """(xy (..., 2), yaw (...), R (..., 2, 2)) at times t (B, ...) for a
     trajectory whose third channel is yaw."""
@@ -162,3 +176,52 @@ def world_to_body(xy, R, p_world):
     return torch.stack([R[..., 0, 0] * d[..., 0] + R[..., 1, 0] * d[..., 1],
                         R[..., 0, 1] * d[..., 0] + R[..., 1, 1] * d[..., 1]],
                        dim=-1)
+
+
+def _piece_deriv_coeffs(coeffs: np.ndarray, order: int) -> np.ndarray:
+    """Ascending-power coefficients of the order-th derivative."""
+    c = np.asarray(coeffs, float)
+    for _ in range(order):
+        nc = c.shape[0]
+        c = c[1:] * np.arange(1, nc)[:, None]
+    return c
+
+
+def max_rate(traj: Trajectory, order: int = 1, dims=(0, 1)) -> np.ndarray:
+    """Exact max |d^order p/dt^order| over each plan's trajectory for the
+    given dims: (B,) on the host (Piece::getMaxVelRate/getMaxAccRate,
+    trajectory.hpp:206-303: stationary points of |v|^2 via numpy
+    companion-matrix roots; exact up to root polish)."""
+    coeffs = traj.coeffs.detach().cpu().double().numpy()   # (B, N, nc, D)
+    durs = traj.durations.detach().cpu().double().numpy()  # (B, N)
+    out = np.zeros(coeffs.shape[0])
+    for b in range(coeffs.shape[0]):
+        best = 0.0
+        for i in range(coeffs.shape[1]):
+            d = _piece_deriv_coeffs(coeffs[b, i], order)[:, list(dims)]
+            # |v|^2 polynomial (ascending powers) and its derivative
+            sq = np.zeros(2 * d.shape[0] - 1)
+            for k in range(d.shape[1]):
+                sq += np.convolve(d[:, k], d[:, k])
+            dsq = sq[1:] * np.arange(1, len(sq))
+            cands = [0.0, durs[b, i]]
+            nz = np.nonzero(np.abs(dsq) > 1e-14)[0]
+            if len(nz):
+                dsq_t = dsq[:nz[-1] + 1]
+                if len(dsq_t) > 1:
+                    roots = np.roots(dsq_t[::-1])
+                    cands += [float(r.real) for r in roots
+                              if abs(r.imag) < 1e-9
+                              and 0.0 <= r.real <= durs[b, i]]
+            for t in cands:
+                best = max(best, float(np.polyval(sq[::-1], t)))
+        out[b] = np.sqrt(max(best, 0.0))
+    return out
+
+
+def max_vel_rate(traj: Trajectory, dims=(0, 1)) -> np.ndarray:
+    return max_rate(traj, 1, dims)
+
+
+def max_acc_rate(traj: Trajectory, dims=(0, 1)) -> np.ndarray:
+    return max_rate(traj, 2, dims)

@@ -6,8 +6,15 @@ gradient and ``OracleState``, its frozen surrogate at a nearby trial
 point, and ``make_cost_fn``, for the fast stage's SVSDF configuration
 (outside only) and the polish stage's (GSIP on the 6 most interior
 points), against the JAX package's, plan by plan, at rtol 1e-8.
+
+Then the single-plan solve ``optimize`` from the JAX mid end's warm
+start on the Circle corridor of tests/test_planner_e2e.py: against the
+JAX ``optimize`` at rtol 1e-8 with equal iteration counts, and its
+sensitivity to a 1e-14 perturbation of the warm start at the pipeline's
+settings.
 """
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -102,3 +109,93 @@ def test_cost_rows_repeat_plans_lane_major(case):
     one = cost(xt)
     torch.testing.assert_close(cost(xt.repeat_interleave(3, dim=0)),
                                one.repeat_interleave(3), rtol=0, atol=0)
+
+
+@pytest.fixture(scope="module")
+def corridor_warm_start():
+    """The Circle corridor of tests/test_planner_e2e.py as the JAX
+    pipeline feeds its back end: the JAX A* path and mid end, and the
+    harvested obstacles padded as Planner._attempt pads them."""
+    from svsdf_tpu.ops.svsdf import SVSDFConfig as JSVSDFConfig
+    from svsdf_tpu.planner import mid_end as jmid
+    from svsdf_tpu.planner.pipeline import Planner as JPlanner, _rotz
+    from tests.test_torch_mid_end import GOAL, START, corridor
+
+    fields, pts = corridor()
+    jsvs = JSVSDFConfig(coarse_n=128, refine_rounds=2, gsip_iters=4,
+                        gsip_coarse_n=48, gsip_refine_rounds=1)
+    jpl = JPlanner(JPlannerConfig(**fields), pts, svs_cfg=jsvs)
+    front = jpl.generate_path(START, GOAL)
+    q = jpl._subsample(front.path, 3.0)
+    obs = jpl._pad_obstacles(jpl._harvest(q), headroom=512)
+    head, tail = np.zeros((3, 3)), np.zeros((3, 3))
+    head[0], tail[0] = front.path[0], front.path[-1]
+    head[0, :2], tail[0, :2] = START[:2], GOAL[:2]
+    mid = jmid.optimize(head, tail, q, np.full(len(q) + 1,
+                                               fields["inittime"]),
+                        np.stack([_rotz(w[2]) for w in q]),
+                        JPlannerConfig(**fields), max_iters=60)
+    carried = convert.astar_result_from_numpy(*front)
+    np.testing.assert_array_equal(carried.path, front.path)
+    assert carried.expansions == front.expansions
+    return fields, jpl.shape, jsvs, np.asarray(mid.opt_x), head, tail, obs
+
+
+@pytest.mark.parametrize("kw", [
+    {},
+    {"mu_schedule": (0.1, 0.01), "weight_p": 240.0, "safety_hor": 0.5},
+], ids=["default-ladder", "refine-overrides"])
+def test_optimize_matches_jax(corridor_warm_start, kw):
+    """The scheduled back-end solve from the JAX mid end's opt_x: the
+    3-stage mu ladder (stages jump on convergence) and a certify-refine
+    round's 2-stage ladder with weight and margin overrides. The stall
+    tolerance is raised so each stage stops after a few iterations: over
+    longer runs the solve amplifies rounding (tests/test_torch_pipeline.py)."""
+    fields, jshape, jsvs, opt_x, head, tail, obs = corridor_warm_start
+    fields = dict(fields, back_rel_stall=0.05)
+    jres = jbe.optimize(jshape, head, tail, obs, opt_x,
+                        JPlannerConfig(**fields), jsvs, max_iters=20, **kw)
+    x, h, t = convert.warm_start_from_numpy(opt_x, head, tail, device="cpu",
+                                            dtype=torch.float64)
+    svs = convert.svsdf_config_from_dict(dataclasses.asdict(jsvs))
+    res = back_end.optimize(convert.shape_from_spec("Circle"), h, t,
+                            obs[None], x,
+                            convert.planner_config_from_dict(fields), svs,
+                            max_iters=20, device="cpu", dtype=torch.float64,
+                            **kw)
+    # 40 + 40 + 20 (or 40 + 20) iterations of budget: the early stages
+    # jumped to their bounds
+    assert int(res.n_iters[0]) == int(jres.n_iters) > 40
+    np.testing.assert_allclose(float(res.cost[0]), float(jres.cost),
+                               rtol=1e-8)
+    np.testing.assert_allclose(res.opt_x[0].numpy(), np.asarray(jres.opt_x),
+                               rtol=1e-7, atol=1e-7)
+    assert bool(res.converged[0]) == bool(jres.converged)
+    with pytest.raises(NotImplementedError, match="A16"):
+        back_end.optimize(convert.shape_from_spec("Circle"), h, t,
+                          obs[None], x, device="cpu", solver="lmbm")
+
+
+def test_optimize_amplifies_rounding_at_pipeline_settings(corridor_warm_start):
+    """Why whole plans are compared at 1e-5 and not 1e-8: at the
+    pipeline's own settings (stall tolerance 1e-6, 120 iterations in the
+    last stage) a 1e-14 relative perturbation of the warm start moves the
+    port's final cost far above rounding (1e-8 here), yet stays below the
+    1e-5 at which tests/test_torch_pipeline.py holds the port to JAX."""
+    fields, _, jsvs, opt_x, head, tail, obs = corridor_warm_start
+    cfg = convert.planner_config_from_dict(fields)
+    svs = convert.svsdf_config_from_dict(dataclasses.asdict(jsvs))
+    rng = np.random.default_rng(0)
+    costs = []
+    for scale in (0.0, 1e-14):
+        x0 = opt_x * (1.0 + scale * rng.standard_normal(opt_x.shape))
+        x, h, t = convert.warm_start_from_numpy(x0, head, tail,
+                                                device="cpu",
+                                                dtype=torch.float64)
+        res = back_end.optimize(convert.shape_from_spec("Circle"), h, t,
+                                obs[None], x, cfg, svs, max_iters=120,
+                                device="cpu", dtype=torch.float64)
+        costs.append(float(res.cost[0]))
+    rel = abs(costs[1] / costs[0] - 1.0)
+    print(f"final cost moved by {rel:.3g} relative")
+    assert 1e-8 < rel < 1e-5

@@ -11,6 +11,8 @@ The other tests hold the wrapper's argument checks, which run before
 anything touches the card.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -48,6 +50,18 @@ def _inputs(b, m, k, seed, device):
     ("sdMoon", (0.3, -0.2, 25.0), 3, 1000, 37),
     ("Polygon", (0.0, 0.0, 0.0), 3, 1000, 37),
     ("Polygon", (0.3, -0.2, 25.0), 512, 48, 192),
+    ("sdUnevenCapsule", (0.3, -0.2, 25.0), 3, 1000, 37),
+    ("star", (0.3, -0.2, 25.0), 3, 1000, 37),
+    ("sdTunnel", (0.3, -0.2, 25.0), 3, 1000, 37),
+    ("sdCutDisk", (0.3, -0.2, 25.0), 3, 1000, 37),
+    ("sdRhombus", (0.3, -0.2, 25.0), 3, 1000, 37),
+    ("sdHorseshoe", (0.3, -0.2, 25.0), 3, 1000, 37),
+    ("sdRoundedCross", (0.3, -0.2, 25.0), 3, 1000, 37),
+    ("sdOrientedVesica", (0.3, -0.2, 25.0), 3, 1000, 37),
+    ("sdPie", (0.3, -0.2, 25.0), 3, 1000, 37),
+    ("sdPie2", (0.0, 0.0, 0.0), 3, 1000, 37),
+    ("star", (0.0, 0.0, 0.0), 32, 768, 128),
+    ("sdRhombus", (0.0, 0.0, 0.0), 1, 2048, 128),
 ], ids=lambda c: f"{c[0]}-{c[2]}x{c[3]}x{c[4]}")
 def test_kernel_matches_plain_on_card(case):
     if not torch.cuda.is_available():
@@ -107,11 +121,16 @@ def _cpu_inputs():
 
 
 def test_wrapper_refuses_other_shapes_and_bfloat16():
+    """Every analytic shape and Polygon has a body; a time-varying shape
+    and a bfloat16 scan raise before anything touches the card."""
+    assert set(shapes.shape_names()) | {"Polygon"} == set(cs.SHAPE_IDS)
     pts, xy, c, s = _cpu_inputs()
+    scaled = dataclasses.replace(shapes.make_shape("sdHeart"),
+                                 time_varying=True)
     with pytest.raises(NotImplementedError):
-        cs._launch(shapes.make_shape("star"), pts, xy, c, s, None)
+        cs._launch(scaled, pts, xy, c, s, None)
     with pytest.raises(NotImplementedError):
-        cs._launch(shapes.make_shape("sdRhombus"), pts, xy, c, s, None)
+        cs._launch(shapes.make_shape("star"), pts, xy, c, s, "bfloat16")
     with pytest.raises(NotImplementedError):
         cs._launch(shapes.make_shape("sdHeart"), pts, xy, c, s, "bfloat16")
 

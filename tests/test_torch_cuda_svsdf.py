@@ -2,8 +2,9 @@
 
   * the plain PyTorch scan against the JAX package's
     ``coarse_scan_reference`` and its Pallas ``coarse_scan`` (interpret
-    mode), on the cases of tests/test_pallas_svsdf.py, float32 at atol
-    1e-5; argmins may differ only where two poses tie within that;
+    mode), on the cases of tests/test_pallas_svsdf.py for every shape
+    body, float32 at atol 1e-5; argmins may differ only where two poses
+    tie within that (the Pallas kernel refuses Polygon);
   * the batched form against the JAX oracle vmapped over plans;
   * the neighbour values f[argmin -/+ 1] against the JAX package's
     ``take_along_axis`` on the (M, K) table scan (ops/svsdf.py), float64.
@@ -27,7 +28,9 @@ from svsdf_tpu_torch.ops import cuda_svsdf as cs
 
 torch.set_num_threads(1)
 
-_SHAPES = ["sdHeart", "Circle", "sdArc"]
+#: every body the kernel has: the 17 analytic shapes and Polygon (the
+#: fallback thin rectangle)
+_SHAPES = list(jshapes.shape_names()) + ["Polygon"]
 
 
 def _case(m, k, seed=0, b=None):
@@ -76,11 +79,17 @@ def test_plain_scan_matches_jax_reference_and_pallas(shape_name, m):
     js = jshapes.make_shape(shape_name)
     f32 = lambda a: jnp.asarray(a, jnp.float32)
     mn_r, ar_r = jps.coarse_scan_reference(js, f32(pts), f32(xy), f32(yaw))
-    mn_p, ar_p = jps.coarse_scan(js, f32(pts), f32(xy), f32(yaw))
     mn, ar, _, _ = _plain(convert.shape_from_spec(shape_name), pts[None],
                           xy[None], yaw[None])
     mn, ar = mn[0].numpy(), ar[0].numpy()
     _assert_scan_close(mn, ar, np.asarray(mn_r), np.asarray(ar_r), 1e-5)
+    if shape_name == "Polygon":
+        # the Pallas kernel has no Polygon body: pallas_call refuses the
+        # vertex array its sdf_xy captures as a constant
+        with pytest.raises(ValueError, match="captures constants"):
+            jps.coarse_scan(js, f32(pts), f32(xy), f32(yaw))
+        return
+    mn_p, ar_p = jps.coarse_scan(js, f32(pts), f32(xy), f32(yaw))
     _assert_scan_close(mn, ar, np.asarray(mn_p), np.asarray(ar_p), 1e-5)
 
 

@@ -28,8 +28,9 @@ from svsdf_tpu_torch.models import shapes
 from svsdf_tpu_torch.ops import esdf
 from svsdf_tpu_torch.ops import kernels as kops
 from svsdf_tpu_torch.parallel import batch as pb
-from svsdf_tpu_torch.planner import wavefront
+from svsdf_tpu_torch.planner import back_end, mid_end, wavefront
 from svsdf_tpu_torch.planner.online import OnlineReplanner
+from svsdf_tpu_torch.planner.pipeline import Planner
 from svsdf_tpu_torch.utils import fixtures
 from svsdf_tpu_torch.utils.config import PlannerConfig
 
@@ -63,7 +64,12 @@ print(json.dumps(sorted(
 
 def test_fresh_import_loads_no_jax():
     names = _module_names()
-    assert "svsdf_tpu_torch.ops.cuda_svsdf" in names
+    assert {"svsdf_tpu_torch.ops.cuda_svsdf", "svsdf_tpu_torch.ops.flatness",
+            "svsdf_tpu_torch.planner.pipeline",
+            "svsdf_tpu_torch.planner.mid_end",
+            "svsdf_tpu_torch.planner.astar",
+            "svsdf_tpu_torch.planner.parity",
+            "svsdf_tpu_torch.utils.debugbus"} <= set(names)
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", _PROBE, json.dumps(names)],
                          cwd=ROOT, env=env, capture_output=True, text=True,
@@ -118,3 +124,20 @@ def test_e2e_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         esdf.esdf(np.zeros((6, 5), np.uint8), 1.0)
 
+
+
+def test_planner_entry_points_default_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sc = fixtures.synthetic_scenario("Circle")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Planner(sc.config, sc.map_points)
+    head = np.zeros((1, 3, 3))
+    wps = np.zeros((1, 2, 3))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mid_end.optimize(head, head, wps, np.ones((1, 3)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        back_end.optimize(shapes.make_shape("Circle"), head, head,
+                          np.zeros((1, 4, 2)), np.zeros((1, 9)))
+    # the host runs only when asked for
+    assert Planner(sc.config, sc.map_points, device="cpu").feas.shape[0] \
+        == sc.config.kernel_yaw_num

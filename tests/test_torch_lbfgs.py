@@ -180,3 +180,129 @@ def test_batch_lanes_finish_apart_and_match_jax(ls_candidates):
         _check(res, jres, lane)
         iters.append(int(jres.n_iters))
     assert len(set(iters)) == 3
+
+
+def _scheduled_cases():
+    """name -> (jax f(x, stage), torch f(x (R, n), stage (R,)), x0,
+    params, n_iters, stage_bounds): continuation objectives whose
+    smoothing or weight changes at the stage bounds."""
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64)
+    P = jlbfgs.LBFGSParams
+    mus = np.array([0.5, 0.1, 0.01])
+    ws = np.array([0.1, 0.01])
+    return {
+        "hinge_mu_ladder": (
+            lambda x, s: (jnp.sum(jsmoothed_l1(jnp.asarray(_TARGETS) - x[0],
+                                               jnp.asarray(mus)[s]))
+                          + 0.05 * x[0] ** 2),
+            lambda x, s: (torch.sum(smoothed_l1(t(_TARGETS) - x[:, :1],
+                                                t(mus)[s][:, None]), -1)
+                          + 0.05 * x[:, 0] ** 2),
+            np.array([-5.0]), P(max_iterations=200), 150, (40, 80)),
+        "nonsmooth_l1_weights": (
+            lambda x, s: (jnp.abs(x[0] - 3.0) + jnp.abs(x[1] + 1.0)
+                          + jnp.asarray(ws)[s] * jnp.sum(x * x)),
+            lambda x, s: (torch.abs(x[:, 0] - 3.0) + torch.abs(x[:, 1] + 1.0)
+                          + t(ws)[s] * torch.sum(x * x, -1)),
+            np.array([10.0, 10.0]),
+            P(max_iterations=60, g_epsilon=0.0, delta=1e-6), 45, (12,)),
+        "quad17_l1_scaled": (
+            lambda x, s: (0.5 * x @ jnp.asarray(_A17) @ x
+                          + jnp.asarray(_B17) @ x
+                          + (1.0 + s) * jnp.sum(jnp.abs(x))),
+            lambda x, s: (0.5 * torch.einsum("ri,ij,rj->r", x, t(_A17), x)
+                          + x @ t(_B17)
+                          + (1.0 + s) * torch.sum(torch.abs(x), -1)),
+            _X17, P(mem_size=6, max_iterations=40, g_epsilon=0.0,
+                    delta=1e-3, max_linesearch=8), 30, (8, 16)),
+    }
+
+
+def _jax_scheduled(jf, bounds):
+    b = jnp.asarray(bounds)
+    return jax.value_and_grad(lambda x, it: jf(x, jnp.sum(it >= b)))
+
+
+def _torch_scheduled(tf, bounds):
+    b = torch.as_tensor(bounds)
+
+    def fun(x, it):
+        stage = torch.sum(it[:, None] >= b[None], dim=1)
+        return lbfgs.value_and_grad(lambda xx: tf(xx, stage))(x)
+    return fun
+
+
+@pytest.mark.parametrize("name", list(_scheduled_cases()))
+def test_minimize_scheduled_matches_jax(name):
+    """Stage bounds (a lane converging early jumps to the next bound),
+    the iteration budget and the objective's view of the counter, one
+    lane at a time, then three lanes at once."""
+    jf, tf, x0, jp, n_iters, bounds = _scheduled_cases()[name]
+    jres = jlbfgs.minimize_scheduled(_jax_scheduled(jf, bounds),
+                                     jnp.asarray(x0), jp, n_iters=n_iters,
+                                     stage_bounds=jnp.asarray(bounds))
+    res = lbfgs.minimize_scheduled(_torch_scheduled(tf, bounds),
+                                   torch.as_tensor(x0)[None],
+                                   _port_params(jp), n_iters=n_iters,
+                                   stage_bounds=bounds)
+    _check(res, jres)
+    assert int(res.n_iters[0]) <= n_iters
+    rng = np.random.default_rng(1)
+    xb = x0[None] + rng.normal(0, 1.0, (3,) + x0.shape)
+    res = lbfgs.minimize_scheduled(_torch_scheduled(tf, bounds),
+                                   torch.as_tensor(xb), _port_params(jp),
+                                   n_iters=n_iters, stage_bounds=bounds)
+    for lane in range(3):
+        _check(res, jlbfgs.minimize_scheduled(
+            _jax_scheduled(jf, bounds), jnp.asarray(xb[lane]), jp,
+            n_iters=n_iters, stage_bounds=jnp.asarray(bounds)), lane)
+
+
+def test_minimize_scheduled_jumps_stages_and_minimize_is_its_case():
+    """A lane that converges inside a stage jumps to the next bound, so
+    its counter passes the bound with fewer iterations run; without
+    bounds and budget the scheduled solver is ``minimize``."""
+    _, tf, x0, jp, n_iters, bounds = _scheduled_cases()["hinge_mu_ladder"]
+    seen = []
+
+    def fun(x, it):
+        seen.append(int(it[0]))
+        return _torch_scheduled(tf, bounds)(x, it)
+
+    res = lbfgs.minimize_scheduled(fun, torch.as_tensor(x0)[None],
+                                   _port_params(jp), n_iters=n_iters,
+                                   stage_bounds=bounds)
+    assert 40 in seen and 80 in seen
+    assert len(set(seen)) < int(res.n_iters[0])     # counters skipped
+    plain = lambda x: tf(x, torch.zeros(x.shape[0], dtype=torch.long))
+    a = lbfgs.minimize(lbfgs.value_and_grad(plain),
+                       torch.as_tensor(x0)[None], _port_params(jp))
+    b = lbfgs.minimize_scheduled(lambda x, it: lbfgs.value_and_grad(plain)(x),
+                                 torch.as_tensor(x0)[None], _port_params(jp))
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+def test_live_solve_reports_to_the_bus_and_stops():
+    from svsdf_tpu_torch.utils.debugbus import BUS
+
+    _, tf, x0, jp, _, _ = _scheduled_cases()["quad17_l1_scaled"]
+    fun = lambda x, it: lbfgs.value_and_grad(
+        lambda xx: tf(xx, torch.zeros_like(it)))(x)
+    params = _port_params(jp, live=True)
+    BUS.clear()
+    res = lbfgs.minimize_scheduled(fun, torch.as_tensor(x0)[None], params)
+    steps = [s for (_, s, _) in BUS.series["opti_cost"]]
+    assert steps == list(range(int(res.n_iters[0])))
+    assert len(BUS.series["opti_gnorm"]) == len(steps)
+    BUS.request_stop()
+    try:
+        res = lbfgs.minimize_scheduled(fun, torch.as_tensor(x0)[None],
+                                       params)
+    finally:
+        BUS.clear_stop()
+        BUS.clear()
+    assert int(res.n_iters[0]) == 1
+    with pytest.raises(ValueError):
+        lbfgs.minimize_scheduled(fun, torch.as_tensor(x0)[None].repeat(2, 1),
+                                 params)
