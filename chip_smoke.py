@@ -10,10 +10,13 @@ Phases, one line each (any failure raises and the exit code is not 0):
   3. kernel vs plain: the coarse-scan kernel against its plain PyTorch
      version on the card, on the parity cases of the JAX package's
      tests/test_pallas_svsdf.py for every shape body (the 17 analytic
-     shapes and Polygon), then timed at the main and e2e paths' shapes
-     and every body at 512x64x96: the kernel's device time
-     (torch.profiler), the wrapper's and the plain version's time per
-     call (CUDA events), printed in the kernel table's JSON line;
+     shapes and Polygon), then timed at the main and e2e paths' shapes,
+     the single plan's (1x768x128, 1x512x128), the grid query's
+     (1x65536x256) and every body at 512x64x96: the kernel's device time
+     (torch.profiler) and the wrapper's and the plain version's time per
+     call (CUDA events), printed in the kernel table's JSON line; the
+     launch geometry of each timed shape and the bound's basis on lines
+     of their own;
   4. main path: plan_batch_staged at B=512, n=8, M=64, sdHeart,
      PlannerConfig(mem_size=8), default_stages(40, scan_dtype=None) —
      one warm-up, then 3 timed runs on fresh inputs, each closed by a
@@ -46,8 +49,9 @@ Phases, one line each (any failure raises and the exit code is not 0):
   9. the single-plan pipeline: Planner.plan with its defaults (100 mid-end
      and 200 back-end iterations, 2 certify rounds, 3 retries, float32) on
      each synthetic scenario at scripts/run_scenarios.py's SVSDF settings,
-     a first and a warm plan on one planner; each must succeed, certify,
-     end at the goal and pass tests/test_golden_scenarios.py's cost gate
+     a first plan, and on Circle a warm one on the same planner; each
+     must succeed, certify, end at the goal and pass
+     tests/test_golden_scenarios.py's cost gate
      (0.3x to 1.5x) against the JAX package's row of scenario_results.json,
      printed beside it (cost and certificate; its times were taken on a
      TPU or a CPU). Then one Circle plan under torch.profiler;
@@ -55,11 +59,19 @@ Phases, one line each (any failure raises and the exit code is not 0):
      sdCutDisk, sdRhombus, sdHorseshoe, sdRoundedCross, sdOrientedVesica,
      sdPie, sdPie2) on a path: one plan_batch_staged solve each at B=32
      (bench problem(8, 64, 32), default_stages(40, scan_dtype=None)), each
-     with a finite median cost.
+     with a finite median cost;
+ 11. the grid query at bench.py::bench_grid_queries' settings: svsdf_grid
+     of sdHeart along the 6-piece MINCO trajectory (bench.grid_setup) on
+     256 x 256 points, SVSDFConfig(coarse_n=256, refine_rounds=3),
+     with_inside=False; 8 batches a run, each with its axes perturbed by
+     U(-0.1, 0.1), one warm-up, 3 timed runs closed by a host readback:
+     queries/s, then one run under torch.profiler (the scan's share of
+     the device time), and the field against the host's float64 plain
+     run (limit 1e-3 m).
 Phase 3's parity cases cover every body, the ten of phase 10 included,
 each bit for bit, and time each body at 512x64x96 against its bound.
-The coarse-scan launches are counted over each path (phases 4, 6, 7, 9
-and each solve of 10) from 0, and after each path the kernel is held bit
+The coarse-scan launches are counted over each path (phases 4, 6, 7, 9,
+each solve of 10, and 11) from 0, and after each path the kernel is held bit
 for bit against its plain version, on seeded inputs, at every shape and
 (B, M, K) that path launched it at. Then the kernel table as one JSON
 line, the nvidia-smi line, and as the last line
@@ -80,10 +92,14 @@ from unittest import mock
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-#: H100 SXM published peaks (NVIDIA H100 datasheet): HBM bytes/s and
-#: float32 (non-tensor-core) operations/s
+#: H100 SXM peaks: HBM bytes/s (NVIDIA H100 datasheet), and float32
+#: operations issued per second outside the tensor cores: 132 SMs x 128
+#: lanes x 1.98 GHz. The datasheet's 67e12 float32 FLOP/s counts each
+#: fused multiply-add as two operations; the kernel is built with
+#: -fmad=false, so no multiply pairs with an add and every operation the
+#: bound counts issues alone
 HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
+ISSUED_FP32_OPS_PER_S = 33.5e12
 
 #: operations per SDF evaluation of the coarse-scan kernel, counted
 #: from csrc/coarse_scan.cu (pose transform 11, running-min compare 1,
@@ -116,6 +132,11 @@ MAIN_SHAPES = ((512, 64, 96), (512, 64, 128), (512, 12, 32), (512, 36, 32),
 #: (B, M, K) of the end-to-end path's scans with 48 obstacles, timed in
 #: phase 3: the fast stage, the polish stage, the certificate at K=192
 E2E_SHAPES = ((512, 48, 96), (512, 48, 128), (512, 48, 192))
+#: (B, M, K) of the single plan's scans, timed in phase 3: the back end on
+#: 768 padded obstacles and the certificate on 512
+PLANNER_SHAPES = ((1, 768, 128), (1, 512, 128))
+#: (B, M, K) of the grid query's scan (phase 11), timed in phase 3
+GRID_SHAPE = (1, 65536, 256)
 #: the bodies phase 3 checks on its first parity cases; every other body
 #: runs the same cases after them
 FIRST_BODIES = ("sdHeart", "Circle", "sdArc")
@@ -262,12 +283,12 @@ def profile_solve(torch, run):
 def scan_bound_ms(shape, b, m, k):
     """Least time for the scan: bytes (points, poses read once; min,
     argmin (int64), two neighbours written once) over HBM rate vs
-    operations over the float32 rate. Returns (ms, 'bytes' |
+    operations over the issued float32 rate. Returns (ms, 'bytes' |
     'operations')."""
     nbytes = b * m * 2 * 4 + b * 4 * k * 4 + b * m * (3 * 4 + 8)
     ops = b * m * k * ops_per_eval(shape)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ISSUED_FP32_OPS_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -334,11 +355,11 @@ def main() -> int:
         raise RuntimeError("chip_smoke.py needs a CUDA card")
     from svsdf_tpu_torch import convert
     from svsdf_tpu_torch.bench import (BENCH_MEM_SIZE, e2e_draws, e2e_setup,
-                                       problem)
+                                       grid_setup, problem)
     from svsdf_tpu_torch.models import shapes
     from svsdf_tpu_torch.ops import cuda_svsdf as cs
     from svsdf_tpu_torch.ops import kernels as kops
-    from svsdf_tpu_torch.ops.svsdf import SVSDFConfig
+    from svsdf_tpu_torch.ops.svsdf import SVSDFConfig, svsdf_grid
     from svsdf_tpu_torch.parallel import batch as pb
     from svsdf_tpu_torch.planner import back_end
     from svsdf_tpu_torch.planner.online import (OnlineReplanner,
@@ -397,7 +418,9 @@ def main() -> int:
         say("scan", shape=name, **row)
     timings = []
     for path, (b, m, k) in ([("main", sh) for sh in MAIN_SHAPES]
-                            + [("e2e", sh) for sh in E2E_SHAPES]):
+                            + [("e2e", sh) for sh in E2E_SHAPES]
+                            + [("planner", sh) for sh in PLANNER_SHAPES]
+                            + [("grid", GRID_SHAPE)]):
         inp = scan_inputs(torch, b, m, k, seed=99)
         wrapper = time_ms(torch, lambda: cs.coarse_scan(heart, *inp))
         kernel, seen = device_ms(torch, lambda: cs.coarse_scan(heart, *inp))
@@ -421,12 +444,23 @@ def main() -> int:
         plain = time_ms(torch, lambda: cs.coarse_scan_reference(shape, *inp),
                         reps=50)
         bound, by = scan_bound_ms(shape, *BODY_TIME_SHAPE)
-        body_times.append({"shape": name, "ops_per_eval": ops_per_eval(shape),
+        body_times.append({"shape": name,
                            "ms": kernel if kernel is not None else wrapper,
                            "ms_source": "profiler" if kernel is not None
                            else "events", "wrapper_ms": wrapper,
                            "plain_ms": plain, "bound_ms": bound,
                            "bound_by": by})
+
+    # the inputs of the rows above that are not readings: the launch
+    # geometry (S, threads, grid) each shape gets, and the bound's basis
+    say("scan_geometry", shapes=[
+        {"path": t["path"], "B": t["B"], "M": t["M"], "K": t["K"],
+         "geometry": cs.launch_geometry(t["B"], t["M"], t["K"])}
+        for t in timings])
+    say("bound_basis", issued_fp32_ops_per_s=ISSUED_FP32_OPS_PER_S,
+        hbm_bytes_per_s=HBM_BYTES_PER_S,
+        ops_per_eval={name: ops_per_eval(shapes.make_shape(name))
+                      for name in all_bodies})
 
     # -- 4. main path --------------------------------------------------
     n, m_obs, batch, iters = 8, 64, 512, 40
@@ -693,7 +727,13 @@ def main() -> int:
                 sc.config, sc.map_points, svs_cfg=svs_rs))
             rec = recorded[sc.name]
             runs = []
-            for _ in range(2):          # first plan, then a warm one
+            # a first plan, then on Circle (a back end runs) a warm one.
+            # A warm plan differs from the first only in that the
+            # planner's caches serve the map products and the obstacle
+            # bucket, code that is the same for every body, so it launches
+            # the scan at its first plan's shapes: one warm plan reaches
+            # all of it, at a fifth of the time of five
+            for _ in range(2 if name == "Circle" else 1):
                 res, wall = timed(torch, lambda: planner.plan(sc.start,
                                                               sc.goal))
                 ok = bool(res.success and res.certified
@@ -709,19 +749,21 @@ def main() -> int:
                         f"{res.certified} cost={res.final_cost} (recorded "
                         f"{rec['final_cost']}) goal_err={goal_err}")
                 runs.append((res, wall, goal_err))
-            (res, first_s, goal_err), (warm, warm_s, _) = runs
+            res, first_s, goal_err = runs[0]
+            stage_s = lambda r: {k: v for k, v in r.timings.items()
+                                 if k != "attempt_log"}
+            warm = {}
             if name == "Circle":        # the scenario that runs a back end
                 profiled = (planner, sc)
+                w, warm_s, _ = runs[1]
+                warm = dict(warm_plan_s=warm_s, warm_timings=stage_s(w),
+                            warm_final_cost=w.final_cost)
             say("planner", scenario=sc.name, build_s=build_s,
-                first_plan_s=first_s, warm_plan_s=warm_s,
-                timings={k: v for k, v in res.timings.items()
-                         if k != "attempt_log"},
-                warm_timings={k: v for k, v in warm.timings.items()
-                              if k != "attempt_log"},
+                first_plan_s=first_s, timings=stage_s(res), **warm,
                 astar_len=len(res.astar_path), success=res.success,
                 certified=res.certified, min_cert_sdf=res.min_cert_sdf,
                 mid_cost=res.mid_cost, final_cost=res.final_cost,
-                warm_final_cost=warm.final_cost, goal_err_m=goal_err,
+                goal_err_m=goal_err,
                 recorded={k: rec.get(k) for k in (
                     "success", "certified", "min_cert_sdf", "astar_len",
                     "mid_cost", "final_cost")},
@@ -758,6 +800,55 @@ def main() -> int:
         worst = max(worst, body_log.check(torch, f"staged {name}",
                                           seed=5000 + 100 * i))
 
+    # -- 11. the grid query --------------------------------------------
+    gq = grid_setup()
+    svs_grid = SVSDFConfig(coarse_n=256, refine_rounds=3)
+    n_grid = len(gq.xs) * len(gq.ys)
+    grid_batches = 8
+    shifts = torch.as_tensor(np.random.default_rng(1).uniform(
+        -0.1, 0.1, (grid_batches, 2, len(gq.xs))).astype(np.float32),
+        device="cuda")
+
+    def grid_run(ds):
+        """svsdf_grid on each batch's perturbed axes, summed on the card,
+        closed by one host readback."""
+        acc = torch.zeros((), device="cuda")
+        for d in ds:
+            acc = acc + svsdf_grid(gq.shape, gq.traj, gq.xs + d[0],
+                                   gq.ys + d[1], svs_grid).sum()
+        return float(acc)
+
+    cs.coarse_scan.launches = 0
+    with ShapeLog(cs) as grid_log:
+        grid_run(shifts)
+        walls = []
+        for i in range(3):
+            walls.append(timed(torch, lambda: grid_run(
+                shifts + 1e-5 * (i + 1)))[1])
+    grid_launches = cs.coarse_scan.launches
+    if grid_launches <= 0:
+        raise AssertionError("the grid query launched no coarse-scan kernel")
+    worst = max(worst, grid_log.check(torch, "grid", seed=6000))
+    grid_prof = profile_solve(torch, lambda: grid_run(shifts))
+    field = svsdf_grid(gq.shape, gq.traj, gq.xs, gq.ys, svs_grid)
+    gh = grid_setup(device="cpu", dtype=torch.float64)
+    t0 = time.perf_counter()
+    field_h = svsdf_grid(gh.shape, gh.traj, gh.xs, gh.ys, svs_grid)
+    host_s = time.perf_counter() - t0
+    grid_err = float((field.double().cpu() - field_h).abs().max())
+    if not (field.shape == (1, len(gq.xs), len(gq.ys))
+            and bool(torch.isfinite(field).all()) and grid_err <= 1e-3):
+        raise AssertionError(f"grid query field: shape {tuple(field.shape)}, "
+                             f"max abs err vs host float64 {grid_err}")
+    grid_wall = statistics.median(walls)
+    say("grid_query", points=n_grid, batches_per_run=grid_batches,
+        coarse_n=svs_grid.coarse_n, refine_rounds=svs_grid.refine_rounds,
+        wall_s=walls, queries_per_s=grid_batches * n_grid / grid_wall,
+        grid_batch_s=grid_wall / grid_batches, kernel_launches=grid_launches,
+        scan_share_of_device=grid_prof["scan_device_s"]
+        / grid_prof["device_busy_s"], profile=grid_prof,
+        max_abs_err_vs_host_f64=grid_err, host_f64_s=host_s)
+
     main_t = timings[0]
     print(json.dumps({"kernels": [{
         "name": "svsdf_coarse_scan",
@@ -774,14 +865,17 @@ def main() -> int:
         "launches_by_path": {"main": launches, "e2e": e2e_launches,
                              "replan": replan_launches,
                              "planner": planner_launches,
-                             "staged_bodies": body_launches},
+                             "staged_bodies": body_launches,
+                             "grid": grid_launches},
         "shapes_ran": {"main": main_log.summary(), "e2e": e2e_log.summary(),
                        "replan": replan_log.summary(),
                        "planner": plan_log.summary(),
-                       "staged_bodies": body_logs},
+                       "staged_bodies": body_logs,
+                       "grid": grid_log.summary()},
         "main_path_median_cost": main_cost,
         "bodies": body_times,
         "scan_times": timings,
+        "grid_scan": next(t for t in timings if t["path"] == "grid"),
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

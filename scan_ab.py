@@ -1,0 +1,253 @@
+#!/usr/bin/env python3
+"""Time this tree's coarse-scan kernel against another tree's, in turns,
+on one NVIDIA card.
+
+    python3 scan_ab.py OTHER_TREE [--log SMOKE_LOG] [--out FILE]
+    python3 scan_ab.py --sass [--out FILE]
+
+OTHER_TREE is a second checkout of the repository (for instance the
+parent commit unpacked with ``git archive`` into a git-ignored
+directory); its ``svsdf_tpu_torch/ops/cuda_svsdf.py`` builds its own
+kernel from its own sources into its own ``build/kernels/``. The shapes
+(body, B, M, K): chip_smoke.py's phase-3 shapes (main, e2e, single plan,
+grid query), every body at 512x64x96, and every shape that the
+``path_scans`` lines of a chip_smoke.py log (``--log``) name. At each,
+both kernels are first held bit for bit against the plain version on
+seeded inputs, then each kernel's device time per launch is read with
+torch.profiler in the order other, this, this, other. At phase 3's
+shapes this kernel is also timed at every lane count S <= min(32, K),
+which ``launch_geometry`` chooses among, in turns (S ascending, then
+descending). Prints one JSON line per shape, a summary line, the card's
+name and power limit; writes all of it to ``--out`` as JSON.
+
+``--sass`` instead compiles this tree's kernel to a cubin with the
+wrapper's nvcc flags and reads it with cuobjdump (no card needed): for
+each body's kernel, its SASS instruction count and its loops (a backward
+branch and the instructions it spans), largest first, with the opcodes
+in each. The scan's unrolled loop holds four evaluations and its
+remainder loop one, so these give the static instructions an
+evaluation issues.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import importlib.util
+import json
+import os
+import re
+import shutil
+import statistics
+import subprocess
+import sys
+
+import chip_smoke as smoke
+
+
+def load_other(tree: str):
+    """The other tree's cuda_svsdf module, under its own name."""
+    path = os.path.join(tree, "svsdf_tpu_torch", "ops", "cuda_svsdf.py")
+    spec = importlib.util.spec_from_file_location("other_cuda_svsdf", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def shapes_from_log(path: str):
+    """(body, B, M, K) of every path_scans line of a chip_smoke.py log."""
+    found = []
+    with open(path) as f:
+        for line in f:
+            if line.startswith("[path_scans] "):
+                for item in json.loads(line[len("[path_scans] "):])["shapes"]:
+                    name, bmk = item.split()
+                    found.append((name, *map(int, bmk.split("x"))))
+    return found
+
+
+#: an instruction line of cuobjdump -sass: /*addr*/ text ;
+_SASS_LINE = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+#: a label line (nvdisasm style), naming the next instruction's address
+_SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+#: the target of a branch: an address, or a label in backquotes
+_SASS_BRA = re.compile(r"\bBRA(?:\.\S+)?\s+(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))")
+
+
+def kernel_body(mangled: str) -> str:
+    """The body name inside coarse_scan_kernel<...>'s mangled name."""
+    m = re.search(r"coarse_scan_kernelIN\w*?_(\d+)", mangled)
+    if not m:
+        return mangled
+    return mangled[m.end():m.end() + int(m.group(1))]
+
+
+def parse_sass(text: str):
+    """{body: {"instructions": n, "loops": [...]}} from cuobjdump -sass;
+    a loop is a backward branch and the instructions from its target to
+    it, with the opcode counts (predicates and modifiers dropped)."""
+    kernels, name, instrs, labels, pending = {}, None, [], {}, []
+
+    def close():
+        if name is None:
+            return
+        addrs = [a for a, _ in instrs]
+        loops = []
+        for a, text in instrs:
+            br = _SASS_BRA.search(text)
+            if not br:
+                continue
+            target = labels.get(br.group(1)) if br.group(1) \
+                else int(br.group(2), 16)
+            if target is None or target >= a:
+                continue
+            body = [t for x, t in instrs if target <= x <= a]
+            ops = collections.Counter(
+                re.sub(r"^@!?U?P\S+\s+", "", t).split()[0].split(".")[0]
+                for t in body)
+            ops.pop("NOP", None)
+            loops.append({"start": hex(target), "end": hex(a),
+                          "instructions": sum(ops.values()),
+                          "ops": dict(ops.most_common())})
+        loops.sort(key=lambda lp: -lp["instructions"])
+        kernels[kernel_body(name)] = {
+            "instructions": sum(1 for _, t in instrs
+                                if not t.lstrip().startswith("NOP")),
+            "span": [hex(addrs[0]), hex(addrs[-1])] if addrs else None,
+            "loops": loops}
+
+    for line in text.splitlines():
+        fn = re.search(r"Function\s*:\s*(\S+)", line)
+        if fn:
+            close()
+            name, instrs, labels, pending = fn.group(1), [], {}, []
+            continue
+        lab = _SASS_LABEL.match(line)
+        if lab:
+            pending.append(lab.group(1))
+            continue
+        ins = _SASS_LINE.match(line)
+        if ins and name is not None:
+            addr = int(ins.group(1), 16)
+            for lb in pending:
+                labels[lb] = addr
+            pending = []
+            instrs.append((addr, ins.group(2)))
+    close()
+    return kernels
+
+
+def sass_report(cs) -> dict:
+    """Compile cs.SOURCE to a cubin with the wrapper's flags (no host
+    code, no ptxas log) and parse cuobjdump -sass of it."""
+    nvcc = cs._nvcc()
+    drop = {"-shared", "-fPIC", "-Xcompiler", "-v", "-Xptxas"}
+    flags = [f for f in cs.NVCC_FLAGS if f not in drop]
+    cubin = cs.BUILD_DIR / "coarse_scan.cubin"
+    cubin.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([nvcc, *flags, "-cubin", "-o", str(cubin),
+                    str(cs.SOURCE)], check=True, capture_output=True,
+                   text=True)
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(nvcc), "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(cubin)], check=True,
+                         capture_output=True, text=True).stdout
+    return {"flags": flags, "kernels": parse_sass(out)}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("other", nargs="?", help="root of the other checkout")
+    ap.add_argument("--log", help="a chip_smoke.py log: time its path shapes")
+    ap.add_argument("--out", default="build/scan_ab.json")
+    ap.add_argument("--reps", type=int, default=30)
+    ap.add_argument("--sass", action="store_true",
+                    help="count the kernel's SASS instructions instead")
+    args = ap.parse_args()
+
+    if args.sass:
+        from svsdf_tpu_torch.ops import cuda_svsdf as this
+        report = sass_report(this)
+        for body, k in report["kernels"].items():
+            print("[sass] " + json.dumps(
+                {"body": body, "instructions": k["instructions"],
+                 "loops": [{key: lp[key] for key in ("instructions", "ops")}
+                           for lp in k["loops"][:3]]}), flush=True)
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(report, f, indent=1)
+        return 0
+    if args.other is None:
+        ap.error("OTHER_TREE is needed unless --sass is given")
+
+    import torch
+    if not torch.cuda.is_available():
+        raise RuntimeError("scan_ab.py needs a CUDA card")
+    from svsdf_tpu_torch.models import shapes
+    from svsdf_tpu_torch.ops import cuda_svsdf as this
+
+    other = load_other(args.other)
+    if os.path.samefile(other.SOURCE, this.SOURCE):
+        raise ValueError("the other tree is this tree")
+    card = smoke.smi_line()
+    table_shapes = (smoke.MAIN_SHAPES + smoke.E2E_SHAPES
+                    + smoke.PLANNER_SHAPES + (smoke.GRID_SHAPE,))
+    cases = [("sdHeart", *sh) for sh in table_shapes]
+    cases += [(name, *smoke.BODY_TIME_SHAPE)
+              for name in tuple(shapes.shape_names()) + ("Polygon",)]
+    if args.log:
+        cases += shapes_from_log(args.log)
+    cases = list(dict.fromkeys(cases))            # first seen, once each
+
+    rows = []
+    for i, (name, b, m, k) in enumerate(cases):
+        shape = shapes.make_shape(name)
+        inp = smoke.scan_inputs(torch, b, m, k, seed=7000 + i)
+        for mod in (other, this):
+            smoke.compare_scan(torch, mod, shape, inp, 1e-5)
+        turns = {}
+        for label, mod in (("other", other), ("this", this), ("this", this),
+                           ("other", other)):
+            ms, _ = smoke.device_ms(
+                torch, lambda: mod.coarse_scan(shape, *inp), reps=args.reps)
+            if ms is None:
+                raise RuntimeError("torch.profiler saw no device time")
+            turns.setdefault(label, []).append(ms)
+        by_lanes = {}
+        if name == "sdHeart" and (b, m, k) in table_shapes:
+            lanes = [s for s in (1, 2, 4, 8, 16, 32) if s <= k]
+            for s in lanes + lanes[::-1]:
+                geo = this.block_shape(b, m, s)
+                by_lanes.setdefault(s, []).append(smoke.device_ms(
+                    torch, lambda: this.launch(shape, *inp, s, *geo),
+                    reps=args.reps)[0])
+        bound, by = smoke.scan_bound_ms(shape, b, m, k)
+        row = {"shape": name, "B": b, "M": m, "K": k,
+               "geometry": this.launch_geometry(b, m, k),
+               "other_ms": turns["other"], "this_ms": turns["this"],
+               "speedup": statistics.median(turns["other"])
+               / statistics.median(turns["this"]),
+               "slower_beyond_spread": min(turns["this"])
+               > max(turns["other"]),
+               "bound_ms": bound, "bound_by": by,
+               "this_share_of_bound": bound
+               / statistics.median(turns["this"]),
+               "this_ms_by_lanes": by_lanes, "bitwise": True}
+        rows.append(row)
+        print("[ab] " + json.dumps(row), flush=True)
+    slower = [f"{r['shape']} {r['B']}x{r['M']}x{r['K']}" for r in rows
+              if r["slower_beyond_spread"]]
+    summary = {"shapes": len(rows), "slower_beyond_spread": slower,
+               "speedup_min": min(r["speedup"] for r in rows),
+               "speedup_max": max(r["speedup"] for r in rows),
+               "card": card}
+    print("[ab_summary] " + json.dumps(summary), flush=True)
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump({"summary": summary, "rows": rows}, f, indent=1)
+    print(card, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,6 +1,7 @@
 """The port's problem sets: the main path's (own copy of
-bench.py::_problem) and the end-to-end cell's map (own copy of the
-set-up of bench.py::bench_e2e).
+bench.py::_problem), the end-to-end cell's map (own copy of the set-up
+of bench.py::bench_e2e) and the grid query's trajectory and axes (own
+copy of the set-up of bench.py::bench_grid_queries).
 
 ``problem`` builds B independent back-end problems from numpy seeds,
 exactly as the repo's ``bench.py`` does: goals in [6, 10] x [-2, 2],
@@ -88,3 +89,36 @@ def e2e_draws(cells, batch: int, rng: np.random.Generator):
     pick = lambda: cells[rng.integers(0, len(cells), batch)]
     starts = pick()
     return starts, pick()
+
+
+class GridSetup(NamedTuple):
+    shape: object              # the robot, sdHeart
+    traj: object               # one 6-piece MINCO Trajectory (B = 1)
+    xs: torch.Tensor           # (grid,) query x coordinates
+    ys: torch.Tensor           # (grid,) query y coordinates
+
+
+def grid_setup(grid: int = 256, device=None,
+               dtype=torch.float32) -> GridSetup:
+    """The grid query's problem (own copy of bench.py::bench_grid_queries'
+    set-up): sdHeart along the 6-piece MINCO trajectory of 1.5 s pieces
+    from (0, 0, 0) to (10, 0, 1) through (10 f, sin 5f, f) at the inner
+    fractions f, queried on linspace(-4, 14, grid) x linspace(-8, 8,
+    grid). Inputs are rounded to float32 first, as the JAX bench builds
+    them."""
+    from svsdf_tpu_torch import resolve_device
+    from svsdf_tpu_torch.models import shapes
+    from svsdf_tpu_torch.ops import minco
+
+    dev = resolve_device(device)
+    n = 6
+    head = np.zeros((1, 3, 3), np.float32)
+    tail = np.zeros((1, 3, 3), np.float32)
+    tail[0, 0] = (10.0, 0.0, 1.0)
+    frac = np.linspace(0, 1, n + 1)[1:-1]
+    wps = np.stack([10 * frac, np.sin(5 * frac), frac], -1)[None]
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), dtype=dtype,
+                                  device=dev)
+    traj = minco.solve(t(np.full((1, n), 1.5)), t(head), t(tail), t(wps))
+    return GridSetup(shapes.make_shape("sdHeart"), traj,
+                     t(np.linspace(-4, 14, grid)), t(np.linspace(-8, 8, grid)))

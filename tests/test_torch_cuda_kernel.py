@@ -116,6 +116,103 @@ def test_kernel_polygon_with_own_vertices():
         assert torch.equal(a, b)
 
 
+def _tie_inputs(b, m, k, seed, device):
+    """Inputs built to tie: every pose appears twice in a row (so each
+    value does too and the first argmin is the earlier copy), a third of
+    the points lie by the first pose (argmin 0) and a third by the last
+    (argmin K-1), the rest anywhere."""
+    pts, xy, c, s = _inputs(b, m, k, seed, "cpu")
+    half = lambda a: a[:, np.arange(k) // 2]
+    xy, c, s = half(xy), half(c), half(s)
+    third = m // 3
+    rng = np.random.default_rng(seed)
+    near = lambda i, n: xy[:, i:i + 1] + torch.as_tensor(
+        rng.uniform(-0.3, 0.3, (b, n, 2)), dtype=torch.float32)
+    pts = torch.cat([near(0, third), near(k - 1, third), pts[:, 2 * third:]],
+                    1)
+    return tuple(t.contiguous().to(device) for t in (pts, xy, c, s))
+
+
+def _assert_kernel_equals_plain(shape, inp, lanes=None):
+    """The wrapper's launch, or with ``lanes`` the kernel at that S and
+    its ``block_shape``, bit for bit against the plain version."""
+    before = cs.coarse_scan.launches
+    if lanes is None:
+        got = cs.coarse_scan(shape, *inp)
+    else:
+        b, m = inp[0].shape[:2]
+        got = cs.launch(shape, *inp, lanes, *cs.block_shape(b, m, lanes))
+    want = cs.coarse_scan_reference(shape, *inp)
+    torch.cuda.synchronize()
+    assert cs.coarse_scan.launches == before + 1
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("name", ["sdHeart", "Circle", "Polygon", "sdPie"])
+def test_kernel_ties_at_every_lane_count(name, lanes):
+    """Duplicated poses, minima at k=0 and K-1, K not a multiple of S and
+    K < S, each S forced: bit for bit against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    shape = shapes.make_shape(name, poly_params=(0.3, -0.2, 25.0))
+    for k in (1, 3, 37, 64):
+        _assert_kernel_equals_plain(
+            shape, _tie_inputs(3, 301, k, seed=k, device="cuda"), lanes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 768, 65536])
+@pytest.mark.parametrize("k", [5, 128, 256])
+def test_kernel_single_plan(m, k):
+    """B=1, the single plan's and the grid query's widths."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    _assert_kernel_equals_plain(shapes.make_shape("sdHeart"),
+                                _inputs(1, m, k, seed=m + k, device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3])
+def test_kernel_fewer_poses_than_lanes(k):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    heart = shapes.make_shape("sdHeart", poly_params=(0.3, -0.2, 25.0))
+    for lanes in (None, 4, 32):
+        _assert_kernel_equals_plain(
+            heart, _tie_inputs(2, 500, k, seed=k, device="cuda"), lanes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(1, (4, 100, 5)), (2, (1, 65536, 256)),
+                                  (4, (512, 64, 96)), (8, (512, 12, 32)),
+                                  (16, (32, 64, 96)), (32, (1, 768, 128))],
+                         ids=lambda c: f"S{c[0]}")
+def test_kernel_at_each_lane_count_the_geometry_chooses(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    lanes, (b, m, k) = case
+    assert cs.launch_geometry(b, m, k)[0] == lanes
+    _assert_kernel_equals_plain(shapes.make_shape("sdHeart"),
+                                _inputs(b, m, k, seed=lanes, device="cuda"))
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_a_pose_table_past_shared_memory():
+    """3073 float4 pose records pass the block's 48 KB: the C entry point
+    refuses the launch and the wrapper raises, counting nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    before = cs.coarse_scan.launches
+    with pytest.raises(RuntimeError, match="cudaError"):
+        cs.coarse_scan(shapes.make_shape("sdHeart"),
+                       *_inputs(1, 64, 3073, seed=0, device="cuda"))
+    assert cs.coarse_scan.launches == before
+
+
 def _cpu_inputs():
     return _inputs(2, 5, 9, seed=0, device="cpu")
 

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone.
 
-  * importing every module of ``svsdf_tpu_torch`` and ``chip_smoke`` in a
-    fresh interpreter loads neither ``jax`` nor any ``svsdf_tpu`` module;
+  * importing every module of ``svsdf_tpu_torch``, ``chip_smoke`` and
+    ``scan_ab`` in a fresh interpreter loads neither ``jax`` nor any
+    ``svsdf_tpu`` module;
   * no source file of the port imports JAX or names ``svsdf_tpu.``
     outside comments;
   * an entry point called without ``device`` runs on CUDA, so it raises
@@ -38,7 +39,8 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "svsdf_tpu_torch"
-SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SCRIPTS = ["chip_smoke", "scan_ab"]
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / f"{s}.py" for s in SCRIPTS]
 
 
 def _module_names():
@@ -48,7 +50,7 @@ def _module_names():
         if parts[-1] == "__init__":
             parts = parts[:-1]
         names.append(".".join(parts))
-    return names + ["chip_smoke"]
+    return names + SCRIPTS
 
 
 _PROBE = """
