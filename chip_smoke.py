@@ -10,19 +10,26 @@ Phases, one line each (any failure raises and the exit code is not 0):
   3. kernel vs plain: the coarse-scan kernel against its plain PyTorch
      version on the card, on the parity cases of the JAX package's
      tests/test_pallas_svsdf.py for every shape body (the 17 analytic
-     shapes and Polygon), then timed at the main and e2e paths' shapes,
-     the single plan's (1x768x128, 1x512x128), the grid query's
-     (1x65536x256) and every body at 512x64x96: the kernel's device time
-     (torch.profiler) and the wrapper's and the plain version's time per
-     call (CUDA events), printed in the kernel table's JSON line; the
-     launch geometry of each timed shape and the bound's basis on lines
-     of their own;
+     shapes and Polygon), in float32 and in the bfloat16 form, and the
+     deformable form (a ScaledShape: each pose at its own scale) for
+     sdHeart, sdRhombus and star in both scan types; then timed at the
+     main and e2e paths' shapes, the single plan's (1x768x128,
+     1x512x128), the grid query's (1x65536x256) and every body at
+     512x64x96, and sdHeart's bfloat16, deformable and deformable
+     bfloat16 forms at 512x64x96 and its bfloat16 form at the grid
+     shape: the kernel's device time (torch.profiler) and the wrapper's
+     and the plain version's time per call (CUDA events), printed in the
+     kernel table's JSON line; the launch geometry of each timed shape
+     and the bound's basis on lines of their own;
   4. main path: plan_batch_staged at B=512, n=8, M=64, sdHeart,
-     PlannerConfig(mem_size=8), default_stages(40, scan_dtype=None) —
+     PlannerConfig(mem_size=8), first at default_stages(40) — the JAX
+     package's bench.py configuration, whose scans run in bfloat16 —
+     then at default_stages(40, scan_dtype=None) (float32 scans): each
      one warm-up, then 3 timed runs on fresh inputs, each closed by a
-     host readback; the kernel's launch count over this phase must be
-     > 0. Then one more solve under torch.profiler: the device's busy
-     share and the kernels that fill it;
+     host readback, plans/s and the median cost; each form's launch
+     count over its run must be > 0. Then one more solve of each under
+     torch.profiler: the device's busy share and the kernels that fill
+     it;
   5. checks: the same solve at B=32 with the kernel and with the plain
      scan on the card (median final cost within 1e-3 relative), and one
      cost/gradient evaluation on the card (float32) against the host
@@ -34,12 +41,12 @@ Phases, one line each (any failure raises and the exit code is not 0):
      readback; every front end must reach its goal. Then one run under
      torch.profiler, and the front end timed alone against a whole run;
   7. online replanning: OnlineReplanner on each synthetic scenario with
-     default_stages_lowlat(50, scan_dtype=None) (3-D front end, route
-     shaping, 2 certify-refine rounds), one replan each (must succeed),
-     and 3 jittered replans on synthetic_sdTrapezoid for the p50; then
-     the JAX package's product operating point (bench.py::_real_replan:
-     n_pieces=12, n_obs=160, default_stages(80, scan_dtype=None), 14
-     refine rounds, tightness 8) on the forest map with sdHeart, one
+     its default stages (default_stages_lowlat(50): bfloat16 scans; 3-D
+     front end, route shaping, 2 certify-refine rounds), one replan each
+     (must succeed), and 3 jittered replans on synthetic_sdTrapezoid for
+     the p50; then the JAX package's product operating point
+     (bench.py::_real_replan: n_pieces=12, n_obs=160, default_stages(80),
+     14 refine rounds, tightness 8) on the forest map with sdHeart, one
      replan and 3 jittered ones. Each replan prints its certify-refine
      re-solves (L-BFGS solves past the staged ones);
   8. checks of the new paths: plan_batch_e2e at B=32 with 2 refine
@@ -67,15 +74,25 @@ Phases, one line each (any failure raises and the exit code is not 0):
      U(-0.1, 0.1), one warm-up, 3 timed runs closed by a host readback:
      queries/s, then one run under torch.profiler (the scan's share of
      the device time), and the field against the host's float64 plain
-     run (limit 1e-3 m).
+     run (limit 1e-3 m);
+ 12. deformable robots: Planner.plan with shape=sc.shape (a ScaledShape)
+     on the three deformable scenarios at scripts/run_scenarios.py's
+     SVSDF settings, each gated as in phase 9 against its
+     scenario_results.json row, the certificate printed beside the
+     row's; then each deformable robot through one plan_batch_staged
+     solve at B=32 with default_stages(40) (the deformable bfloat16
+     form);
+ 13. the LMBM back end: Planner(solver="lmbm") on synthetic_Circle (its
+     back end runs), gated as in phase 9.
 Phase 3's parity cases cover every body, the ten of phase 10 included,
 each bit for bit, and time each body at 512x64x96 against its bound.
 The coarse-scan launches are counted over each path (phases 4, 6, 7, 9,
-each solve of 10, and 11) from 0, and after each path the kernel is held bit
-for bit against its plain version, on seeded inputs, at every shape and
-(B, M, K) that path launched it at. Then the kernel table as one JSON
-line, the nvidia-smi line, and as the last line
-{"ok": true, "device": {...}}.
+each solve of 10, 11, 12 and 13) from 0, in all and by form, and after
+each path the kernel is held bit for bit against its plain version, on
+seeded inputs (and seeded pose times for a deformable robot), at every
+shape, form and (B, M, K) that path launched it at. Then the kernel
+table as one JSON line (one entry a form), the nvidia-smi line, and as
+the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -100,6 +117,13 @@ sys.path.insert(0, ROOT)
 #: bound counts issues alone
 HBM_BYTES_PER_S = 3.35e12
 ISSUED_FP32_OPS_PER_S = 33.5e12
+#: bfloat16 operations outside the tensor cores: packed __nv_bfloat162
+#: instructions carry two a lane at the float32 issue rate (the bfloat16
+#: form's work is the same function; the least time counts it packed)
+ISSUED_BF16_OPS_PER_S = 2 * ISSUED_FP32_OPS_PER_S
+#: the deformable form's operations per evaluation past the body's: the
+#: two divisions q / s and the product s * body
+OPS_SCALED = 3
 
 #: operations per SDF evaluation of the coarse-scan kernel, counted
 #: from csrc/coarse_scan.cu (pose transform 11, running-min compare 1,
@@ -185,16 +209,33 @@ def scan_inputs(torch, b, m, k, seed):
     return f32(pts), f32(xy), torch.cos(yaw_t), torch.sin(yaw_t)
 
 
-def compare_scan(torch, cs, shape, inputs, atol):
-    """Kernel vs plain on the card: (max abs err, bitwise). The kernel's
-    argmin must point at a pose whose reference value is the minimum
-    within atol, and its neighbour values must be the reference's at
-    that argmin -+ 1 (clipped). The kernel is built to agree with the
-    plain version bit for bit, so any difference at all fails."""
+def pose_times(torch, b, k, seed):
+    """Pose times of a plan's table, 0..T with T in [8, 16) per plan
+    (a deformable robot's scale reads them)."""
+    import numpy as np
+    total = np.random.default_rng(seed).uniform(8.0, 16.0, (b, 1))
+    ts = total * np.linspace(0.0, 1.0, k)[None]
+    return torch.as_tensor(ts, dtype=torch.float32, device="cuda")
+
+
+def compare_scan(torch, cs, shape, inputs, atol, scan_dtype=None, ts=None):
+    """Kernel vs plain on the card: (max abs err, bitwise), in the form
+    that ``scan_dtype`` and the shape give (the pose times ``ts`` feed a
+    deformable robot's scales). The kernel's argmin must point at a pose
+    whose reference value is the minimum within atol, and its neighbour
+    values must be the reference's at that argmin -+ 1 (clipped). The
+    kernel is built to agree with the plain version bit for bit, so any
+    difference at all fails."""
     pts, xy, c, s = inputs
-    mn_k, ar_k, fm_k, fp_k = cs.coarse_scan(shape, pts, xy, c, s)
-    mn_r, ar_r, fm_r, fp_r = cs.coarse_scan_reference(shape, pts, xy, c, s)
-    f_ref = cs.scan_matrix(shape, pts, xy, c, s)           # (B, M, K)
+    mn_k, ar_k, fm_k, fp_k = cs.coarse_scan(shape, pts, xy, c, s,
+                                            scan_dtype=scan_dtype, ts=ts)
+    mn_r, ar_r, fm_r, fp_r = cs.coarse_scan_reference(
+        shape, pts, xy, c, s, scan_dtype=scan_dtype, ts=ts)
+    dt = cs.scan_type(scan_dtype)
+    cast = (lambda v: v) if dt is None else (lambda v: v.to(dt))
+    f_ref = cs.scan_matrix(shape, *map(cast, inputs),
+                           cast(ts) if shape.time_varying else None
+                           ).to(torch.float32)                # (B, M, K)
     torch.cuda.synchronize()
     k = f_ref.shape[-1]
     if not bool(((ar_k >= 0) & (ar_k < k)).all()):
@@ -280,35 +321,49 @@ def profile_solve(torch, run):
                     for k, v in top]}
 
 
-def scan_bound_ms(shape, b, m, k):
-    """Least time for the scan: bytes (points, poses read once; min,
-    argmin (int64), two neighbours written once) over HBM rate vs
-    operations over the issued float32 rate. Returns (ms, 'bytes' |
-    'operations')."""
-    nbytes = b * m * 2 * 4 + b * 4 * k * 4 + b * m * (3 * 4 + 8)
-    ops = b * m * k * ops_per_eval(shape)
+def scan_bound_ms(shape, b, m, k, bf16=False):
+    """Least time for the scan: bytes (points, poses (and a deformable
+    robot's scales) read once; min, argmin (int64), two neighbours
+    written once) over HBM rate vs operations over the issued rate of the
+    scan type. Returns (ms, 'bytes' | 'operations')."""
+    scaled = shape.time_varying
+    nbytes = (b * m * 2 * 4 + b * (4 + int(scaled)) * k * 4
+              + b * m * (3 * 4 + 8))
+    ops = b * m * k * (ops_per_eval(shape) + OPS_SCALED * int(scaled))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ISSUED_FP32_OPS_PER_S * 1e3
+    t_ops = ops / (ISSUED_BF16_OPS_PER_S if bf16
+                   else ISSUED_FP32_OPS_PER_S) * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def form_of(cs, shape, scan_dtype):
+    """The kernel form a launch of ``shape`` at ``scan_dtype`` runs."""
+    import torch
+    return cs.form(cs.scan_type(scan_dtype) == torch.bfloat16,
+                   shape.time_varying)
+
+
 class ShapeLog:
-    """Records the shape and (B, M, K) of every kernel launch while
+    """Records the shape, form and (B, M, K) of every kernel launch while
     active, by wrapping the wrapper's launch function (the count stays
     the wrapper's own); ``check`` then holds the kernel against its plain
-    version at each of them."""
+    version at each of them, and ``worst`` keeps each form's largest
+    error."""
+
+    #: the largest error seen by any check, by form
+    worst: dict = {}
 
     def __init__(self, cs):
         self.cs, self.seen = cs, {}
         self._orig = cs._launch
 
     def __enter__(self):
-        def logged(shape, points, xy, *rest):
+        def logged(shape, points, xy, cos, sin, scan_dtype=None, ts=None):
             key = (shape.name, shape.tx, shape.ty, shape.yaw0,
-                   shape.vertices, points.shape[0], points.shape[1],
-                   xy.shape[1])
-            self.seen.setdefault(key, shape)
-            return self._orig(shape, points, xy, *rest)
+                   shape.vertices, form_of(self.cs, shape, scan_dtype),
+                   points.shape[0], points.shape[1], xy.shape[1])
+            self.seen.setdefault(key, (shape, scan_dtype))
+            return self._orig(shape, points, xy, cos, sin, scan_dtype, ts)
         self.cs._launch = logged
         return self
 
@@ -316,20 +371,44 @@ class ShapeLog:
         self.cs._launch = self._orig
 
     def summary(self):
-        return sorted({f"{k[0]} {k[5]}x{k[6]}x{k[7]}" for k in self.seen})
+        return sorted({f"{k[0]} {k[5]} {k[6]}x{k[7]}x{k[8]}"
+                       for k in self.seen})
 
     def check(self, torch, path, seed):
-        """Kernel vs plain, bit for bit, on seeded inputs at every shape
-        and (B, M, K) the path launched; returns the largest error."""
+        """Kernel vs plain, bit for bit, on seeded inputs at every shape,
+        form and (B, M, K) the path launched; returns the largest
+        error."""
         worst = 0.0
-        for i, (key, shape) in enumerate(self.seen.items()):
-            b, m, k = key[5:]
+        for i, (key, (shape, scan_dtype)) in enumerate(self.seen.items()):
+            b, m, k = key[6:]
+            ts = pose_times(torch, b, k, seed + i)
             err, _ = compare_scan(torch, self.cs, shape,
-                                  scan_inputs(torch, b, m, k, seed + i), 1e-5)
+                                  scan_inputs(torch, b, m, k, seed + i), 1e-5,
+                                  scan_dtype, ts)
             worst = max(worst, err)
+            ShapeLog.worst[key[5]] = max(ShapeLog.worst.get(key[5], 0.0),
+                                         err)
         say("path_scans", path=path, cases=len(self.seen),
             shapes=self.summary(), max_abs_err=worst, bitwise=True)
         return worst
+
+
+def time_scan(torch, cs, shape, inp, scan_dtype, ts, bound):
+    """One shape and form of the scan timed: the kernel's device time
+    (profiler; where it saw none, the wrapper's time per call by CUDA
+    events), the wrapper's and the plain version's, and the bound."""
+    b, m = inp[0].shape[:2]
+    k = inp[1].shape[1]
+    kw = dict(scan_dtype=scan_dtype, ts=ts)
+    wrapper = time_ms(torch, lambda: cs.coarse_scan(shape, *inp, **kw))
+    kernel, seen = device_ms(torch, lambda: cs.coarse_scan(shape, *inp, **kw))
+    plain = time_ms(torch, lambda: cs.coarse_scan_reference(shape, *inp,
+                                                            **kw))
+    return {"B": b, "M": m, "K": k,
+            "ms": kernel if kernel is not None else wrapper,
+            "ms_source": "profiler" if kernel is not None else "events",
+            "wrapper_ms": wrapper, "profiled_launches": seen,
+            "plain_ms": plain, "bound_ms": bound[0], "bound_by": bound[1]}
 
 
 def timed(torch, fn):
@@ -402,38 +481,54 @@ def main() -> int:
             shape = shapes.make_shape(name, poly_params=pp)
             for m in (7, 1024, 2000):
                 cases.append((shape, 1, m, 37, 1e-5))
-    worst = 0.0
+    # the bfloat16 form on every case above; the deformable forms of the
+    # deformable scenarios' robots in both scan types on the same inputs
+    cases = ([c + (None,) for c in cases]
+             + [c + ("bfloat16",) for c in cases])
+    for scenario in fixtures.list_deformable_scenarios():
+        robot = fixtures.deformable_scenario(scenario).shape
+        for pp in ((0.0, 0.0, 0.0), (0.3, -0.2, 25.0)):
+            shape = shapes.make_scaled_shape(robot.name, robot.scale_fn,
+                                             poly_params=pp)
+            for dt in (None, "bfloat16"):
+                for m in (7, 1024, 2000):
+                    cases.append((shape, 1, m, 37, 1e-5, dt))
     per_body = {}
-    for i, (shape, b, m, k, atol) in enumerate(cases):
+    for i, (shape, b, m, k, atol, dt) in enumerate(cases):
         err, bitwise = compare_scan(torch, cs, shape,
-                                    scan_inputs(torch, b, m, k, seed=i), atol)
-        worst = max(worst, err)
-        row = per_body.setdefault(shape.name, {"cases": [], "max_abs_err":
-                                               0.0, "bitwise": True})
+                                    scan_inputs(torch, b, m, k, seed=i), atol,
+                                    dt, pose_times(torch, b, k, seed=i))
+        fm = form_of(cs, shape, dt)
+        ShapeLog.worst[fm] = max(ShapeLog.worst.get(fm, 0.0), err)
+        row = per_body.setdefault((shape.name, fm), {
+            "cases": [], "max_abs_err": 0.0, "bitwise": True})
         row["cases"].append(f"{b}x{m}x{k} pre={shape.tx},{shape.ty},"
                             f"{shape.yaw0:.4f}")
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row["bitwise"] = row["bitwise"] and bitwise
-    for name, row in per_body.items():     # one line per body
-        say("scan", shape=name, **row)
+    for (name, fm), row in per_body.items():     # one line per body, form
+        say("scan", shape=name, form=fm, **row)
     timings = []
     for path, (b, m, k) in ([("main", sh) for sh in MAIN_SHAPES]
                             + [("e2e", sh) for sh in E2E_SHAPES]
                             + [("planner", sh) for sh in PLANNER_SHAPES]
                             + [("grid", GRID_SHAPE)]):
         inp = scan_inputs(torch, b, m, k, seed=99)
-        wrapper = time_ms(torch, lambda: cs.coarse_scan(heart, *inp))
-        kernel, seen = device_ms(torch, lambda: cs.coarse_scan(heart, *inp))
-        plain = time_ms(torch, lambda: cs.coarse_scan_reference(heart, *inp))
-        bound, by = scan_bound_ms(heart, b, m, k)
-        # "ms": the kernel's device time (profiler); where the profiler
-        # saw none, the wrapper's time per call (CUDA events)
-        timings.append({"path": path, "B": b, "M": m, "K": k,
-                        "ms": kernel if kernel is not None else wrapper,
-                        "ms_source": "profiler" if kernel is not None
-                        else "events", "wrapper_ms": wrapper,
-                        "profiled_launches": seen, "plain_ms": plain,
-                        "bound_ms": bound, "bound_by": by})
+        timings.append(dict(path=path, **time_scan(
+            torch, cs, heart, inp, None, None, scan_bound_ms(heart, b, m, k))))
+    # sdHeart's other forms: at the main path's shape, and the bfloat16
+    # form at the grid query's
+    scaled_heart = fixtures.deformable_scenario("deformable_heart").shape
+    form_times = {}
+    for fm, shape, dt, (b, m, k) in (
+            ("bfloat16", heart, "bfloat16", BODY_TIME_SHAPE),
+            ("scaled_float32", scaled_heart, None, BODY_TIME_SHAPE),
+            ("scaled_bfloat16", scaled_heart, "bfloat16", BODY_TIME_SHAPE),
+            ("bfloat16", heart, "bfloat16", GRID_SHAPE)):
+        inp = scan_inputs(torch, b, m, k, seed=97)
+        row = time_scan(torch, cs, shape, inp, dt, pose_times(torch, b, k, 97),
+                        scan_bound_ms(shape, b, m, k, bf16=dt is not None))
+        form_times.setdefault(fm, []).append(dict(form=fm, **row))
     # every body at one shape: kernel (profiler), plain (events), bound
     body_times = []
     inp = scan_inputs(torch, *BODY_TIME_SHAPE, seed=98)
@@ -458,6 +553,8 @@ def main() -> int:
          "geometry": cs.launch_geometry(t["B"], t["M"], t["K"])}
         for t in timings])
     say("bound_basis", issued_fp32_ops_per_s=ISSUED_FP32_OPS_PER_S,
+        issued_bf16_ops_per_s=ISSUED_BF16_OPS_PER_S,
+        scaled_extra_ops_per_eval=OPS_SCALED,
         hbm_bytes_per_s=HBM_BYTES_PER_S,
         ops_per_eval={name: ops_per_eval(shapes.make_shape(name))
                       for name in all_bodies})
@@ -465,44 +562,60 @@ def main() -> int:
     # -- 4. main path --------------------------------------------------
     n, m_obs, batch, iters = 8, 64, 512, 40
     cfg = PlannerConfig(mem_size=BENCH_MEM_SIZE)
-    stages = pb.default_stages(iters, scan_dtype=None)
     h, tl, obs, x0 = problem(n, m_obs, batch)
     prob, x0_t = convert.problem_from_numpy(h, tl, obs, x0)
-    cs.coarse_scan.launches = 0
-    with ShapeLog(cs) as main_log:
-        out = pb.plan_batch_staged(heart, x0_t, prob, cfg, stages, n)
-        float(out.cost.sum())
-        rng = np.random.default_rng(1)
-        walls, costs, n_iters = [], [], []
-        for _ in range(3):
-            xx = x0_t + torch.as_tensor(
-                rng.uniform(-1e-3, 1e-3, x0.shape).astype(np.float32),
-                device="cuda")
-            t0 = time.perf_counter()
-            out = pb.plan_batch_staged(heart, xx, prob, cfg, stages, n)
+
+    def main_path(stages_, form, seed):
+        """One warm-up and 3 timed solves at ``stages_``, counted from 0;
+        the kernel then held at every shape the path launched. Returns
+        (median cost, the path's launches, its ShapeLog)."""
+        cs.reset_launches()
+        with ShapeLog(cs) as log:
+            out = pb.plan_batch_staged(heart, x0_t, prob, cfg, stages_, n)
             float(out.cost.sum())
-            walls.append(time.perf_counter() - t0)
-            costs.append(float(out.cost.median()))
-            n_iters.append(float(out.n_iters.float().mean()))
-    launches = cs.coarse_scan.launches
-    if launches <= 0:
-        raise AssertionError("the main path launched no coarse-scan kernel")
-    worst = max(worst, main_log.check(torch, "main", seed=1000))
-    if not (torch.isfinite(out.cost).all() and torch.isfinite(out.opt_x).all()
-            and out.opt_x.shape == (batch, 4 * n - 3)
-            and out.traj.coeffs.shape == (batch, n, 6, 3)):
-        raise AssertionError("main path output not finite / wrong shape")
-    wall = statistics.median(walls)
-    main_cost = statistics.median(costs)
-    say("main_path", B=batch, n=n, M=m_obs, iters=iters, wall_s=walls,
-        median_wall_s=wall, plans_per_s=batch / wall,
-        median_final_cost=main_cost,
-        mean_n_iters_last_stage=statistics.mean(n_iters),
-        kernel_launches=launches, launches_per_solve=launches / 4)
-    # where one solve's time goes: device busy share and kernel counts
-    say("main_path_profile", B=batch, **profile_solve(
-        torch, lambda: float(pb.plan_batch_staged(
-            heart, x0_t, prob, cfg, stages, n).cost.sum())))
+            rng = np.random.default_rng(1)
+            walls, costs, n_iters = [], [], []
+            for _ in range(3):
+                xx = x0_t + torch.as_tensor(
+                    rng.uniform(-1e-3, 1e-3, x0.shape).astype(np.float32),
+                    device="cuda")
+                t0 = time.perf_counter()
+                out = pb.plan_batch_staged(heart, xx, prob, cfg, stages_, n)
+                float(out.cost.sum())
+                walls.append(time.perf_counter() - t0)
+                costs.append(float(out.cost.median()))
+                n_iters.append(float(out.n_iters.float().mean()))
+        total = cs.coarse_scan.launches
+        by_form = dict(cs.coarse_scan.form_launches)
+        launches = by_form[form]
+        if launches <= 0:
+            raise AssertionError(f"the main path ({form} scans) launched no "
+                                 "coarse-scan kernel of that form")
+        log.check(torch, f"main {form}", seed=seed)
+        if not (torch.isfinite(out.cost).all()
+                and torch.isfinite(out.opt_x).all()
+                and out.opt_x.shape == (batch, 4 * n - 3)
+                and out.traj.coeffs.shape == (batch, n, 6, 3)):
+            raise AssertionError("main path output not finite / wrong shape")
+        wall = statistics.median(walls)
+        say("main_path", scan=form, B=batch, n=n, M=m_obs, iters=iters,
+            wall_s=walls, median_wall_s=wall, plans_per_s=batch / wall,
+            median_final_cost=statistics.median(costs),
+            mean_n_iters_last_stage=statistics.mean(n_iters),
+            kernel_launches=total, form_launches=by_form,
+            launches_per_solve=launches / 4)
+        # where one solve's time goes: device busy share and kernel counts
+        say("main_path_profile", scan=form, B=batch, **profile_solve(
+            torch, lambda: float(pb.plan_batch_staged(
+                heart, x0_t, prob, cfg, stages_, n).cost.sum())))
+        return statistics.median(costs), launches, log
+
+    # the JAX package's bench.py configuration (bfloat16 scans), then the
+    # float32 variant the earlier readings were taken at
+    bf16_cost, bf16_launches, bf16_log = main_path(
+        pb.default_stages(iters), "bfloat16", seed=1100)
+    stages = pb.default_stages(iters, scan_dtype=None)
+    main_cost, launches, main_log = main_path(stages, "float32", seed=1000)
 
     # -- 5. checks -----------------------------------------------------
     small = 32
@@ -545,7 +658,7 @@ def main() -> int:
                                  stages, n_e, obs_e, res_e, xy_min_e, **kw)
 
     rng = np.random.default_rng(0)
-    cs.coarse_scan.launches = 0
+    cs.reset_launches()
     with ShapeLog(cs) as e2e_log:
         out = run_e2e(*e2e_draws(e2e.cells, batch_e, rng))
         float(out.cost.sum())
@@ -561,7 +674,7 @@ def main() -> int:
     e2e_launches = cs.coarse_scan.launches
     if e2e_launches <= 0:
         raise AssertionError("the e2e path launched no coarse-scan kernel")
-    worst = max(worst, e2e_log.check(torch, "e2e", seed=2000))
+    e2e_log.check(torch, "e2e", seed=2000)
     if min(ok_shares) < 1.0:
         raise AssertionError(f"e2e front end missed goals: {ok_shares}")
     for o in outs:
@@ -592,8 +705,8 @@ def main() -> int:
         / statistics.median(wholes))
 
     # -- 7. online replanning ------------------------------------------
-    lowlat = pb.default_stages_lowlat(50, scan_dtype=None)
-    product = pb.default_stages(80, scan_dtype=None)
+    # the JAX package's settings: bfloat16 scans
+    product = pb.default_stages(80)
 
     def replan_once(rp, label, start, goal, stages_, solves):
         """One replan that must succeed; the L-BFGS solves past the
@@ -624,21 +737,23 @@ def main() -> int:
             replan_p50_s=statistics.median(lat), cert_min=certs,
             refine_solves=refine)
 
-    cs.coarse_scan.launches = 0
+    cs.reset_launches()
     with ShapeLog(cs) as replan_log, mock.patch.object(
             pb.lbfgs, "minimize", wraps=pb.lbfgs.minimize) as solves:
         for name in fixtures.list_synthetic_scenarios():
             sc = fixtures.synthetic_scenario(name)
-            rp = OnlineReplanner(sc.config, sc.map_points, stages=lowlat)
+            rp = OnlineReplanner(sc.config, sc.map_points)
             r, nr = replan_once(rp, sc.name, sc.start[:2], sc.goal[:2],
-                                lowlat, solves)
+                                rp.stages, solves)
             say("replan", scenario=sc.name, build_breakdown=rp.build_breakdown,
                 n_obs=rp.n_obs, success=r.success, cost=r.cost,
                 cert_min=r.cert_min, refine_solves=nr)
             if name == "sdTrapezoid":
-                jittered(rp, sc.name, sc.start[:2], sc.goal[:2], lowlat,
-                         solves, "synthetic gate map, default_stages_lowlat"
-                         "(50), n_pieces=8, n_obs capped by the map")
+                jittered(rp, sc.name, sc.start[:2], sc.goal[:2], rp.stages,
+                         solves, "synthetic gate map, OnlineReplanner's "
+                         "default stages (default_stages_lowlat(50), "
+                         "bfloat16 scans), n_pieces=8, n_obs capped by the "
+                         "map")
         # the JAX package's product operating point (bench.py::_real_replan:
         # n_pieces=12, n_obs=160, default_stages(80), 14 refine rounds,
         # tightness 8), on the forest map with sdHeart: its reference map
@@ -658,13 +773,16 @@ def main() -> int:
             refine_solves=nr)
         jittered(rp, "forest_sdHeart", start_f, goal_f, product, solves,
                  "forest map, bench.py::_real_replan's settings")
-    replan_launches = cs.coarse_scan.launches
+    replan_launches = cs.coarse_scan.form_launches["bfloat16"]
     if replan_launches <= 0:
-        raise AssertionError("the replan path launched no coarse-scan kernel")
-    say("replan_launches", kernel_launches=replan_launches)
-    worst = max(worst, replan_log.check(torch, "replan", seed=3000))
+        raise AssertionError("the replan path launched no bfloat16 "
+                             "coarse-scan kernel")
+    say("replan_launches", kernel_launches=cs.coarse_scan.launches,
+        form_launches=cs.coarse_scan.form_launches)
+    replan_log.check(torch, "replan", seed=3000)
 
     # -- 8. checks of the new paths ------------------------------------
+    lowlat = pb.default_stages_lowlat(50, scan_dtype=None)
     cfg_f = PlannerConfig(mem_size=BENCH_MEM_SIZE, kernel_size=15,
                           kernel_yaw_num=8)
     feas3, trans3, cc3 = front_end_maps(e2e.shape, e2e.grid.occ2d, cfg_f)
@@ -719,7 +837,36 @@ def main() -> int:
     with open(os.path.join(ROOT, "scenario_results.json")) as f:
         recorded = {r["name"]: r for r in json.load(f)}
     lo, hi = COST_GATE
-    cs.coarse_scan.launches = 0
+
+    def gated_plan(planner, sc, rec):
+        """One Planner.plan that must succeed, certify, end at the goal
+        and pass the cost gate against the recorded row: (result, wall
+        seconds, goal error in m)."""
+        res, wall = timed(torch, lambda: planner.plan(sc.start, sc.goal))
+        ok = bool(res.success and res.certified
+                  and lo * rec["final_cost"] < res.final_cost
+                  < hi * rec["final_cost"])
+        end = trj.pos(res.traj, res.traj.total_duration[:, None])
+        goal_err = float((end[0, 0, :2].cpu()
+                          - torch.as_tensor(sc.goal[:2])).norm())
+        if not (ok and goal_err < 0.05
+                and torch.isfinite(res.traj.coeffs).all()):
+            raise AssertionError(
+                f"{sc.name}: plan success={res.success} certified="
+                f"{res.certified} cost={res.final_cost} (recorded "
+                f"{rec['final_cost']}) goal_err={goal_err}")
+        return res, wall, goal_err
+
+    def stage_s(r):
+        return {k: v for k, v in r.timings.items() if k != "attempt_log"}
+
+    def recorded_row(rec):
+        return dict(recorded={k: rec.get(k) for k in (
+            "success", "certified", "min_cert_sdf", "astar_len", "mid_cost",
+            "final_cost")}, cost_gate=[lo * rec["final_cost"],
+                                       hi * rec["final_cost"]])
+
+    cs.reset_launches()
     with ShapeLog(cs) as plan_log:
         for name in fixtures.list_synthetic_scenarios():
             sc = fixtures.synthetic_scenario(name)
@@ -734,24 +881,8 @@ def main() -> int:
             # the scan at its first plan's shapes: one warm plan reaches
             # all of it, at a fifth of the time of five
             for _ in range(2 if name == "Circle" else 1):
-                res, wall = timed(torch, lambda: planner.plan(sc.start,
-                                                              sc.goal))
-                ok = bool(res.success and res.certified
-                          and lo * rec["final_cost"] < res.final_cost
-                          < hi * rec["final_cost"])
-                end = trj.pos(res.traj, res.traj.total_duration[:, None])
-                goal_err = float((end[0, 0, :2].cpu()
-                                  - torch.as_tensor(sc.goal[:2])).norm())
-                if not (ok and goal_err < 0.05
-                        and torch.isfinite(res.traj.coeffs).all()):
-                    raise AssertionError(
-                        f"{sc.name}: plan success={res.success} certified="
-                        f"{res.certified} cost={res.final_cost} (recorded "
-                        f"{rec['final_cost']}) goal_err={goal_err}")
-                runs.append((res, wall, goal_err))
+                runs.append(gated_plan(planner, sc, rec))
             res, first_s, goal_err = runs[0]
-            stage_s = lambda r: {k: v for k, v in r.timings.items()
-                                 if k != "attempt_log"}
             warm = {}
             if name == "Circle":        # the scenario that runs a back end
                 profiled = (planner, sc)
@@ -763,16 +894,12 @@ def main() -> int:
                 astar_len=len(res.astar_path), success=res.success,
                 certified=res.certified, min_cert_sdf=res.min_cert_sdf,
                 mid_cost=res.mid_cost, final_cost=res.final_cost,
-                goal_err_m=goal_err,
-                recorded={k: rec.get(k) for k in (
-                    "success", "certified", "min_cert_sdf", "astar_len",
-                    "mid_cost", "final_cost")},
-                cost_gate=[lo * rec["final_cost"], hi * rec["final_cost"]])
+                goal_err_m=goal_err, **recorded_row(rec))
     planner_launches = cs.coarse_scan.launches
     if planner_launches <= 0:
         raise AssertionError("the planner path launched no coarse-scan kernel")
     say("planner_launches", kernel_launches=planner_launches)
-    worst = max(worst, plan_log.check(torch, "planner", seed=4000))
+    plan_log.check(torch, "planner", seed=4000)
     planner, sc = profiled
     say("planner_profile", scenario=sc.name, **profile_solve(
         torch, lambda: planner.plan(sc.start, sc.goal)))
@@ -784,7 +911,7 @@ def main() -> int:
     body_logs = {}
     for i, name in enumerate(STAGED_BODIES):
         shape = shapes.make_shape(name)
-        cs.coarse_scan.launches = 0
+        cs.reset_launches()
         with ShapeLog(cs) as body_log:
             out, wall = timed(torch, lambda: pb.plan_batch_staged(
                 shape, x10_t, prob10, cfg, stages, 8))
@@ -797,8 +924,7 @@ def main() -> int:
                                  f"{body_launches[name]}, median cost {med}")
         say("body_path", shape=name, B=32, wall_s=wall, median_cost=med,
             kernel_launches=body_launches[name])
-        worst = max(worst, body_log.check(torch, f"staged {name}",
-                                          seed=5000 + 100 * i))
+        body_log.check(torch, f"staged {name}", seed=5000 + 100 * i)
 
     # -- 11. the grid query --------------------------------------------
     gq = grid_setup()
@@ -818,7 +944,7 @@ def main() -> int:
                                    gq.ys + d[1], svs_grid).sum()
         return float(acc)
 
-    cs.coarse_scan.launches = 0
+    cs.reset_launches()
     with ShapeLog(cs) as grid_log:
         grid_run(shifts)
         walls = []
@@ -828,7 +954,7 @@ def main() -> int:
     grid_launches = cs.coarse_scan.launches
     if grid_launches <= 0:
         raise AssertionError("the grid query launched no coarse-scan kernel")
-    worst = max(worst, grid_log.check(torch, "grid", seed=6000))
+    grid_log.check(torch, "grid", seed=6000)
     grid_prof = profile_solve(torch, lambda: grid_run(shifts))
     field = svsdf_grid(gq.shape, gq.traj, gq.xs, gq.ys, svs_grid)
     gh = grid_setup(device="cpu", dtype=torch.float64)
@@ -849,34 +975,119 @@ def main() -> int:
         / grid_prof["device_busy_s"], profile=grid_prof,
         max_abs_err_vs_host_f64=grid_err, host_f64_s=host_s)
 
-    main_t = timings[0]
-    print(json.dumps({"kernels": [{
-        "name": "svsdf_coarse_scan",
-        "route": "cuda",
-        "source": "svsdf_tpu_torch/csrc/coarse_scan.cu",
-        "replaces": "svsdf_tpu/ops/pallas_svsdf.py:54",
-        "launches": launches,
-        "max_abs_err": worst,
-        "ms": main_t["ms"],
-        "plain_ms": main_t["plain_ms"],
-        "bound_ms": main_t["bound_ms"],
-        "bound_by": main_t["bound_by"],
-        "library_ms": None,
-        "launches_by_path": {"main": launches, "e2e": e2e_launches,
-                             "replan": replan_launches,
-                             "planner": planner_launches,
-                             "staged_bodies": body_launches,
-                             "grid": grid_launches},
-        "shapes_ran": {"main": main_log.summary(), "e2e": e2e_log.summary(),
-                       "replan": replan_log.summary(),
-                       "planner": plan_log.summary(),
-                       "staged_bodies": body_logs,
-                       "grid": grid_log.summary()},
-        "main_path_median_cost": main_cost,
-        "bodies": body_times,
-        "scan_times": timings,
-        "grid_scan": next(t for t in timings if t["path"] == "grid"),
-    }]}), flush=True)
+    # -- 12. deformable robots ----------------------------------------
+    cs.reset_launches()
+    with ShapeLog(cs) as deform_log:
+        for name in fixtures.list_deformable_scenarios():
+            sc = fixtures.deformable_scenario(name)
+            planner, build_s = timed(torch, lambda: Planner(
+                sc.config, sc.map_points, svs_cfg=svs_rs, shape=sc.shape))
+            rec = recorded[sc.name]
+            res, plan_s, goal_err = gated_plan(planner, sc, rec)
+            say("deformable", scenario=sc.name, build_s=build_s,
+                plan_s=plan_s, timings=stage_s(res),
+                astar_len=len(res.astar_path), success=res.success,
+                certified=res.certified, min_cert_sdf=res.min_cert_sdf,
+                mid_cost=res.mid_cost, final_cost=res.final_cost,
+                goal_err_m=goal_err, **recorded_row(rec))
+    deform_launches = cs.coarse_scan.form_launches["scaled_float32"]
+    if deform_launches <= 0:
+        raise AssertionError("the deformable plans launched no deformable "
+                             "coarse-scan kernel")
+    say("deformable_launches", kernel_launches=cs.coarse_scan.launches,
+        form_launches=cs.coarse_scan.form_launches)
+    deform_log.check(torch, "deformable planner", seed=7000)
+    # each deformable robot through a staged solve with bfloat16 scans
+    cs.reset_launches()
+    with ShapeLog(cs) as deform_staged_log:
+        for name in fixtures.list_deformable_scenarios():
+            shape = fixtures.deformable_scenario(name).shape
+            out, wall = timed(torch, lambda: pb.plan_batch_staged(
+                shape, x10_t, prob10, cfg, pb.default_stages(iters), 8))
+            med = float(out.cost.median())
+            if not (math.isfinite(med) and torch.isfinite(out.opt_x).all()):
+                raise AssertionError(f"{name}: staged solve median {med}")
+            say("deformable_staged", scenario=name, B=32, wall_s=wall,
+                median_cost=med)
+    deform_bf16_launches = cs.coarse_scan.form_launches["scaled_bfloat16"]
+    if deform_bf16_launches <= 0:
+        raise AssertionError("the deformable staged solves launched no "
+                             "deformable bfloat16 coarse-scan kernel")
+    say("deformable_staged_launches", kernel_launches=cs.coarse_scan.launches,
+        form_launches=cs.coarse_scan.form_launches)
+    deform_staged_log.check(torch, "deformable staged", seed=7500)
+
+    # -- 13. the LMBM back end -----------------------------------------
+    cs.reset_launches()
+    with ShapeLog(cs) as lmbm_log:
+        sc = fixtures.synthetic_scenario("Circle")
+        planner = Planner(sc.config, sc.map_points, svs_cfg=svs_rs,
+                          solver="lmbm")
+        rec = recorded[sc.name]
+        res, plan_s, goal_err = gated_plan(planner, sc, rec)
+    if not res.timings["back_s"] > 0.0:
+        raise AssertionError("the LMBM plan ran no back end")
+    lmbm_launches = cs.coarse_scan.launches
+    if lmbm_launches <= 0:
+        raise AssertionError("the LMBM plan launched no coarse-scan kernel")
+    say("lmbm_planner", scenario=sc.name, solver="lmbm", plan_s=plan_s,
+        timings=stage_s(res), success=res.success, certified=res.certified,
+        min_cert_sdf=res.min_cert_sdf, mid_cost=res.mid_cost,
+        final_cost=res.final_cost, goal_err_m=goal_err,
+        kernel_launches=lmbm_launches, **recorded_row(rec))
+    lmbm_log.check(torch, "lmbm planner", seed=8000)
+
+    def kernel_entry(form, launches_, t, **extra):
+        """The kernel table's entry of one form, timed at ``t``."""
+        return {"name": "svsdf_coarse_scan" + (
+                    "" if form == "float32" else f"_{form}"),
+                "route": "cuda",
+                "source": "svsdf_tpu_torch/csrc/coarse_scan.cu",
+                "replaces": "svsdf_tpu/ops/pallas_svsdf.py:54",
+                "launches": launches_,
+                "max_abs_err": ShapeLog.worst.get(form, 0.0),
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": None, "timed_at": [t["B"], t["M"], t["K"]],
+                **extra}
+
+    # the XLA table scan the JAX package runs where its Pallas kernel
+    # refuses (bfloat16, a time-varying shape)
+    xla_scan = "svsdf_tpu/ops/svsdf.py:140"
+    print(json.dumps({"kernels": [
+        kernel_entry(
+            "float32", launches, timings[0],
+            launches_by_path={"main": launches, "e2e": e2e_launches,
+                              "planner": planner_launches,
+                              "staged_bodies": body_launches,
+                              "grid": grid_launches,
+                              "lmbm_planner": lmbm_launches},
+            shapes_ran={"main": main_log.summary(), "e2e": e2e_log.summary(),
+                        "planner": plan_log.summary(),
+                        "staged_bodies": body_logs,
+                        "grid": grid_log.summary(),
+                        "lmbm_planner": lmbm_log.summary()},
+            main_path_median_cost=main_cost, bodies=body_times,
+            scan_times=timings,
+            grid_scan=next(t for t in timings if t["path"] == "grid")),
+        kernel_entry(
+            "bfloat16", bf16_launches, form_times["bfloat16"][0],
+            counterpart_of=xla_scan,
+            launches_by_path={"main": bf16_launches,
+                              "replan": replan_launches},
+            shapes_ran={"main": bf16_log.summary(),
+                        "replan": replan_log.summary()},
+            main_path_median_cost=bf16_cost,
+            grid_scan=form_times["bfloat16"][1]),
+        kernel_entry(
+            "scaled_float32", deform_launches,
+            form_times["scaled_float32"][0], counterpart_of=xla_scan,
+            shapes_ran={"deformable_planner": deform_log.summary()}),
+        kernel_entry(
+            "scaled_bfloat16", deform_bf16_launches,
+            form_times["scaled_bfloat16"][0], counterpart_of=xla_scan,
+            shapes_ran={"deformable_staged": deform_staged_log.summary()}),
+    ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

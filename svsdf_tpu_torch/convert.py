@@ -77,6 +77,22 @@ def shape_from_spec(name: str,
                              vertices=vertices)
 
 
+def scaled_shape_from_fields(name: str, scale_fn, tx: float = 0.0,
+                             ty: float = 0.0, yaw0: float = 0.0,
+                             kernel_scale: float = 1.0,
+                             vertices: Optional[Sequence] = None
+                             ) -> shapes.ScaledShape:
+    """A deformable robot from another package's ScaledShape fields (name,
+    pre-transform tx, ty and yaw0 in radians, kernel_scale, a Polygon's
+    vertices). ``scale_fn`` is the torch form of its scale schedule: a
+    callable does not cross between packages, so the caller writes the
+    same formula with torch operations."""
+    base = shapes.make_scaled_shape(name, scale_fn, vertices=vertices,
+                                    kernel_scale=kernel_scale)
+    return dataclasses.replace(base, tx=float(tx), ty=float(ty),
+                               yaw0=float(yaw0))
+
+
 def gridmap_from_numpy(resolution: float, xyz_min, occ) -> GridMap:
     """A GridMap from another package's grid fields (resolution, (3,)
     origin, (X, Y, Z) occupancy)."""

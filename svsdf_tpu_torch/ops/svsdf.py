@@ -115,7 +115,7 @@ def make_pose_table(traj: trj.Trajectory, n: int) -> PoseTable:
 def _sdf_from_table(shape, table: PoseTable, points, dtype=None):
     """SDF of M points at the table's K shared times: (B, M, K)."""
     if dtype is not None:
-        dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+        dt = cuda_svsdf.scan_type(dtype)
         table = PoseTable(*(v.to(dt) for v in table))
         points = points.to(dt)
     d = points[:, :, None, :] - table.xy[:, None]
@@ -194,7 +194,7 @@ def tstar_search_batch(shape, traj, points, cfg: SVSDFConfig,
         table = make_pose_table(traj, cfg.coarse_n)
     best, i, fm, fp = cuda_svsdf.coarse_scan(
         shape, points, table.xy, table.cos, table.sin,
-        scan_dtype=cfg.scan_dtype)
+        scan_dtype=cfg.scan_dtype, ts=table.ts)
     k = table.ts.shape[1]
     dt = (total / (k - 1))[:, None]                          # (B, 1)
     t0 = i.to(points.dtype) * dt

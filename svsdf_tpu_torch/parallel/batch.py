@@ -85,8 +85,8 @@ def default_stages(total_iters: int = 50, ls: int = 4,
     (coarse_n=96, table-parabola t*), then 20% full GSIP polish
     (coarse_n=128, two wide rounds, gsip_topk=6), with the frozen-oracle
     parallel line search. Defaults are the JAX package's, including
-    ``scan_dtype="bfloat16"``; the CUDA coarse scan runs float32 only,
-    so card runs pass ``scan_dtype=None``."""
+    ``scan_dtype="bfloat16"``, which the CUDA coarse scan runs in its
+    bfloat16 form (``scan_dtype=None`` scans in float32)."""
     fast = SVSDFConfig(coarse_n=96, refine_rounds=0, refine_n=16,
                        use_inside=False, scan_dtype=scan_dtype)
     polish = SVSDFConfig(coarse_n=128, refine_rounds=2, refine_n=16,

@@ -21,8 +21,9 @@ parallel/batch.py), are repeated to match.
 
 ``optimize`` is the single-plan pipeline's solve: the hinge-smoothing
 continuation inside one ``lbfgs.minimize_scheduled`` loop with the
-weak-Wolfe line search on the full cost. The LMBM solver is not ported
-yet (ROADMAP A16).
+weak-Wolfe line search on the full cost, or with ``solver="lmbm"`` the
+reference's bundle method (utils/lmbm.py), one solve per stage of the
+ladder on the autograd gradient of the full cost.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from svsdf_tpu_torch.ops import minco
 from svsdf_tpu_torch.ops.svsdf import DEFAULT_CONFIG, SVSDFConfig, svsdf_query
 from svsdf_tpu_torch.utils import trajectory as trj
 from svsdf_tpu_torch.utils.config import PlannerConfig
-from svsdf_tpu_torch.utils import lbfgs
+from svsdf_tpu_torch.utils import lbfgs, lmbm
 from svsdf_tpu_torch.utils.lbfgs import value_and_grad
 from svsdf_tpu_torch.utils.transforms import forward_t, smoothed_l1
 
@@ -201,12 +202,15 @@ class BackEndResult(NamedTuple):
 _MAX_ITER_BOUND = 1024
 
 
+#: the back-end solvers: the weak-Wolfe L-BFGS continuation and the
+#: bundle method
+SOLVERS = ("lbfgs", "lmbm")
+
+
 def check_solver(solver: str) -> None:
-    """Only the weak-Wolfe L-BFGS solve is ported."""
-    if solver != "lbfgs":
-        raise NotImplementedError(
-            f"back-end solver {solver!r} is not ported yet (LMBM: ROADMAP "
-            "A16); use solver='lbfgs'")
+    if solver not in SOLVERS:
+        raise ValueError(f"unknown back-end solver {solver!r}; have "
+                         f"{SOLVERS}")
 
 
 def _f32(v, dtype, dev):
@@ -252,6 +256,37 @@ def _run(shape, x0, problem: BackEndProblem, cfg: PlannerConfig,
     return BackEndResult(traj, res.x, res.f, res.n_iters, res.converged)
 
 
+def _run_lmbm(shape, x0, problem: BackEndProblem, cfg: PlannerConfig,
+              svs_cfg: SVSDFConfig, n: int, max_iters: int,
+              mu_schedule: tuple, weight_p, safety_hor):
+    """Per-stage LMBM continuation (the reference's solver,
+    back_end_optimizer.cpp:30): one bundle solve per mu of the ladder,
+    each restarting the bundle from the last stage's x, on the autograd
+    gradient of the full cost (as the JAX package's jax.value_and_grad of
+    ``make_cost_fn``). Every stage but the last gets
+    max(max_iters // 2, 40) iterations."""
+    x = x0
+    iters_done = torch.zeros(x0.shape[0], dtype=torch.long,
+                             device=x0.device)
+    res = None
+    for i, mu in enumerate(mu_schedule):
+        cost = make_cost_fn(shape, problem, cfg, svs_cfg, n, mu=mu,
+                            weight_p=weight_p, safety_hor=safety_hor)
+        iters = max_iters if i == len(mu_schedule) - 1 else max(
+            max_iters // 2, 40)
+        res = lmbm.minimize(
+            value_and_grad(cost), x,
+            lmbm.LMBMParams(mem_size=cfg.mem_size, max_iterations=iters,
+                            delta=max(cfg.relCostTol, cfg.back_rel_stall)))
+        x = res.x
+        iters_done = iters_done + res.n_iters
+    times = forward_t(x[:, :n])
+    wps = x[:, n:].reshape(x0.shape[0], n - 1, 3)
+    with torch.no_grad():
+        traj = minco.solve(times, problem.head, problem.tail, wps)
+    return BackEndResult(traj, x, res.f, iters_done, res.converged)
+
+
 def optimize(shape, head, tail, obstacles, opt_x,
              cfg: PlannerConfig = PlannerConfig(),
              svs_cfg: SVSDFConfig = DEFAULT_CONFIG,
@@ -273,7 +308,8 @@ def optimize(shape, head, tail, obstacles, opt_x,
 
     The mu ladder is padded to 3 stage slots with zero-length stages;
     every stage but the last gets max(max_iters // 2, 40) iterations, the
-    last max_iters."""
+    last max_iters. ``solver="lmbm"`` runs ``_run_lmbm`` on the ladder as
+    given (mu as Python floats, as the JAX package's static schedule)."""
     check_solver(solver)
     dev = resolve_device(device)
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
@@ -283,6 +319,9 @@ def optimize(shape, head, tail, obstacles, opt_x,
     wp = _f32(cfg.weight_p if weight_p is None else weight_p, dtype, dev)
     sh = _f32(cfg.safety_hor if safety_hor is None else safety_hor, dtype,
               dev)
+    if solver == "lmbm":
+        return _run_lmbm(shape, opt_x, problem, cfg, svs_cfg, n, max_iters,
+                         tuple(mu_schedule), wp, sh)
     n_stage_slots = 3
     mus = list(mu_schedule)[:n_stage_slots]
     early = max(max_iters // 2, 40)

@@ -73,6 +73,8 @@ class Planner:
         self.dtype = dtype
         self.config = config
         self.svs_cfg = svs_cfg
+        #: back-end nonsmooth solver: "lbfgs" (weak-Wolfe L-BFGS) or
+        #: "lmbm" (the reference's bundle method, utils/lmbm.py)
         self.solver = solver
         #: last-resort retry rung: rebuild the planner with
         #: kernel_yaw_num * factor for factor in (fine_yaw_factor,
@@ -84,6 +86,9 @@ class Planner:
         self._yaw_substeps = conservative_yaw_substeps
         self._fine_planners: dict = {}
         self._memo_cache: dict = {}
+        #: an explicit shape overrides config.inputdata: a deformable robot
+        #: (ScaledShape) rasterizes its front-end kernels at kernel_scale,
+        #: and every SVSDF query sees its time-varying scale
         self.shape = shape if shape is not None else \
             shapes.shape_from_objpath(config.inputdata, config.poly_params)
         self.grid = GridMap.from_points(
@@ -124,7 +129,10 @@ class Planner:
     # -- precompute memoization ---------------------------------------------
 
     def _memo(self, key: str, fn):
-        """Compute a one-shot map product once per planner."""
+        """Compute a one-shot map product once per planner. The memo
+        lives with the planner and its one shape, so no key names the
+        shape (the JAX package's disk memo must skip a time-varying
+        shape, whose scale callable has no stable identity)."""
         if key not in self._memo_cache:
             self._memo_cache[key] = fn()
         return self._memo_cache[key]

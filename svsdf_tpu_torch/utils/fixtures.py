@@ -1,11 +1,13 @@
-"""Synthetic scenario fixtures (own copy of the synthetic part of
-svsdf_tpu/utils/fixtures.py).
+"""Synthetic and deformable scenario fixtures (own copy of those parts
+of svsdf_tpu/utils/fixtures.py).
 
 For the analytic shapes the reference ships no demo fixtures for, each
 scenario is a gate map (one two-voxel-thick wall, one gap) sized to the
 shape, so every shape family can be driven end to end without the
-reference checkout. The loaders of the reference's 13 fixtures (PCD maps,
-YAML configs) are not ported yet.
+reference checkout. The deformable scenarios thread a breathing robot
+(models/shapes.py ScaledShape) through a gate sized for its largest
+scale. The loaders of the reference's 13 fixtures (PCD maps, YAML
+configs) and its mesh robots are not ported yet.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import dataclasses
 
 import numpy as np
 
+from svsdf_tpu_torch.models import shapes
 from svsdf_tpu_torch.utils.config import PlannerConfig
 
 
@@ -69,3 +72,65 @@ def synthetic_scenario(name: str) -> Scenario:
     goal = np.asarray([43.5, mid + 0.5, 0.0])
     return Scenario(name=f"synthetic_{name}", config=cfg,
                     map_points=np.asarray(pts), start=start, goal=goal)
+
+
+def list_deformable_scenarios():
+    return ["deformable_heart", "deformable_rhombus", "deformable_star"]
+
+
+#: deformable scenario -> (body, scale amplitude, angular rate,
+#: kernel_scale, half gap, map height, kernel_size): s(t) = 1 + amp *
+#: sin(rate * t), the front end's kernels at the largest scale
+_DEFORMABLE = {
+    # breathing sdHeart (max body radius ~4.6 m, +25% inflation): a
+    # curved, asymmetric SDF through the scale hook; its round footprint
+    # cannot thread tighter than its max-scale width, so the gate is roomy
+    "deformable_heart": ("sdHeart", 0.25, 0.8, 1.25, 6.4, 36.0, 15),
+    # breathing sdRhombus: long axis ~4.4 m but narrow across, so it
+    # threads the 3.6 m half gap sideways while inflating 20%: wall voxels
+    # land in the harvest band and certify-refine is live
+    "deformable_rhombus": ("sdRhombus", 0.2, 0.8, 1.2, 3.6, 28.0, 13),
+    # max-scale star radius ~3.8 m: a 4.2 m half gap keeps the
+    # conservative front end feasible with wall voxels in the bd/3 band
+    "deformable_star": ("star", 0.35, 0.9, 1.35, 4.2, 28.0, 13),
+}
+
+
+def deformable_scenario(name: str = "deformable_star") -> Scenario:
+    """Breathing-scale robot scenario: the paper's ``useScale`` demos
+    (sw_manager.hpp:495-518). The front end plans with conservative
+    max-scale kernels (ScaledShape.sdf_xy at kernel_scale), the SVSDF
+    certificate sees the true time-varying sweep."""
+    if name not in _DEFORMABLE:
+        raise KeyError(name)
+    body, amp, rate, kscale, half_gap, height, ksize = _DEFORMABLE[name]
+    shape = shapes.make_scaled_shape(
+        body, shapes.breathing_scale(amp, rate), kernel_scale=kscale)
+    mid = height / 2.0
+    pts = []
+    for x in (24.5, 25.5):
+        for y in np.arange(0.5, height, 1.0):
+            if abs(y - mid) > half_gap:
+                for z in (0.5, 1.5):
+                    pts.append((x, y, z))
+    pts += [(0.05, 0.05, 0.05), (49.9, height - 0.1, 1.9)]
+    cfg = PlannerConfig(inputdata=f"shapes/{body}.obj", kernel_size=ksize,
+                        kernel_yaw_num=12, occupancy_resolution=1.0,
+                        safety_hor=0.4, loadStartEnd=False)
+    return Scenario(name=name, config=cfg, map_points=np.asarray(pts),
+                    start=np.asarray([6.5, mid + 0.5, 0.0]),
+                    goal=np.asarray([43.5, mid + 0.5, 0.0]), shape=shape)
+
+
+def load_any(name: str) -> Scenario:
+    """A scenario by the repo's naming convention: ``synthetic_*`` (gate
+    maps), ``deformable_*`` (breathing robots). The reference's fixtures
+    and ``mesh_*`` need the reference maps and the mesh SDF, which are not
+    ported yet, and raise."""
+    if name.startswith("synthetic_"):
+        return synthetic_scenario(name.removeprefix("synthetic_"))
+    if name.startswith("deformable_"):
+        return deformable_scenario(name)
+    raise NotImplementedError(
+        f"scenario {name!r}: the reference fixtures and mesh robots are "
+        "not ported yet")

@@ -171,9 +171,9 @@ def test_optimize_matches_jax(corridor_warm_start, kw):
     np.testing.assert_allclose(res.opt_x[0].numpy(), np.asarray(jres.opt_x),
                                rtol=1e-7, atol=1e-7)
     assert bool(res.converged[0]) == bool(jres.converged)
-    with pytest.raises(NotImplementedError, match="A16"):
+    with pytest.raises(ValueError, match="unknown back-end solver"):
         back_end.optimize(convert.shape_from_spec("Circle"), h, t,
-                          obs[None], x, device="cpu", solver="lmbm")
+                          obs[None], x, device="cpu", solver="bfgs")
 
 
 def test_optimize_amplifies_rounding_at_pipeline_settings(corridor_warm_start):

@@ -213,23 +213,116 @@ def test_kernel_refuses_a_pose_table_past_shared_memory():
     assert cs.coarse_scan.launches == before
 
 
+#: the breathing scale schedules of utils/fixtures.py's deformable
+#: scenarios, by body
+_SCALES = {"sdHeart": (0.25, 0.8), "sdRhombus": (0.2, 0.8),
+           "star": (0.35, 0.9)}
+
+
+def _scaled(name, pre=(0.0, 0.0, 0.0)):
+    amp, w = _SCALES.get(name, (0.3, 0.9))
+    return shapes.make_scaled_shape(name, shapes.breathing_scale(amp, w),
+                                    poly_params=pre)
+
+
+def _times(b, k, device, horizon=12.0):
+    """Pose times 0..horizon per plan, as the pose table's linspace."""
+    return torch.linspace(0.0, horizon, k, device=device).expand(
+        b, k).contiguous()
+
+
+def _assert_form_equals_plain(shape, inp, scan_dtype, ts=None):
+    """The wrapper's launch of one form bit for bit against the plain
+    version at the same scan dtype and pose times."""
+    before = cs.coarse_scan.launches
+    got = cs.coarse_scan(shape, *inp, scan_dtype=scan_dtype, ts=ts)
+    want = cs.coarse_scan_reference(shape, *inp, scan_dtype=scan_dtype,
+                                    ts=ts)
+    torch.cuda.synchronize()
+    assert cs.coarse_scan.launches == before + 1
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(cs.SHAPE_IDS))
+@pytest.mark.parametrize("pre", [(0.0, 0.0, 0.0), (0.3, -0.2, 25.0)],
+                         ids=["pre0", "pre"])
+def test_bf16_form_matches_plain_on_card(name, pre):
+    """scan_dtype="bfloat16": every body, ties included (duplicated
+    poses), at a main-path shape and the single plan's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    shape = shapes.make_shape(name, poly_params=pre)
+    for b, m, k in ((3, 1000, 37), (1, 768, 128)):
+        _assert_form_equals_plain(
+            shape, _tie_inputs(b, m, k, seed=k, device="cuda"), "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scan_dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("name", ["sdHeart", "sdRhombus", "star", "Polygon",
+                                  "Circle"])
+def test_scaled_form_matches_plain_on_card(name, scan_dtype):
+    """A deformable robot (ScaledShape): each pose at its own scale, in
+    float32 and in bfloat16, at the lane counts of three path shapes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    shape = _scaled(name, pre=(0.3, -0.2, 25.0))
+    for b, m, k in ((512, 64, 96), (1, 768, 128), (4, 301, 37)):
+        _assert_form_equals_plain(
+            shape, _tie_inputs(b, m, k, seed=k, device="cuda"), scan_dtype,
+            ts=_times(b, k, "cuda"))
+
+
+@pytest.mark.cuda
+def test_scaled_table_past_shared_memory():
+    """3000 poses: 16 bytes a record fit the block's 48 KB, 20 with the
+    scale do not. The rigid scan runs; the scaled one is refused by the
+    C entry point and the wrapper raises, counting nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    inp = _inputs(1, 64, 3000, seed=0, device="cuda")
+    _assert_kernel_equals_plain(shapes.make_shape("sdHeart"), inp)
+    before = cs.coarse_scan.launches
+    with pytest.raises(RuntimeError, match="cudaError"):
+        cs.coarse_scan(_scaled("sdHeart"), *inp, ts=_times(1, 3000, "cuda"))
+    assert cs.coarse_scan.launches == before
+
+
+@pytest.mark.cuda
+def test_unsupported_scan_dtype_raises_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    before = cs.coarse_scan.launches
+    with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
+        cs.coarse_scan(shapes.make_shape("sdHeart"),
+                       *_inputs(1, 64, 32, seed=0, device="cuda"),
+                       scan_dtype="float16")
+    assert cs.coarse_scan.launches == before
+
+
 def _cpu_inputs():
     return _inputs(2, 5, 9, seed=0, device="cpu")
 
 
 def test_wrapper_refuses_other_shapes_and_bfloat16():
-    """Every analytic shape and Polygon has a body; a time-varying shape
-    and a bfloat16 scan raise before anything touches the card."""
+    """Every analytic shape and Polygon has a body, in float32 and in
+    bfloat16, rigid or scaled; a scan dtype the kernel has no form for
+    (float16, float64), a shape without a body and a time-varying shape
+    without its pose times raise before anything touches the card."""
     assert set(shapes.shape_names()) | {"Polygon"} == set(cs.SHAPE_IDS)
+    assert cs.KERNEL_SCAN_TYPES == (None, torch.float32, torch.bfloat16)
     pts, xy, c, s = _cpu_inputs()
-    scaled = dataclasses.replace(shapes.make_shape("sdHeart"),
-                                 time_varying=True)
+    for dt in ("float16", torch.float64):
+        with pytest.raises(NotImplementedError):
+            cs._launch(shapes.make_shape("star"), pts, xy, c, s, dt)
+    nobody = dataclasses.replace(shapes.make_shape("sdHeart"), name="mesh")
     with pytest.raises(NotImplementedError):
-        cs._launch(scaled, pts, xy, c, s, None)
-    with pytest.raises(NotImplementedError):
-        cs._launch(shapes.make_shape("star"), pts, xy, c, s, "bfloat16")
-    with pytest.raises(NotImplementedError):
-        cs._launch(shapes.make_shape("sdHeart"), pts, xy, c, s, "bfloat16")
+        cs._launch(nobody, pts, xy, c, s, "bfloat16")
+    with pytest.raises(ValueError, match="pose times"):
+        cs._launch(_scaled("sdHeart"), pts, xy, c, s, "bfloat16")
 
 
 def test_wrapper_checks_types_and_shapes():
@@ -250,4 +343,27 @@ def test_cpu_tensors_take_the_plain_version():
     for a, b in zip(cs.coarse_scan(heart, *inp),
                     cs.coarse_scan_reference(heart, *inp)):
         assert torch.equal(a, b)
+    ts = _times(2, 9, "cpu")
+    for dt in (None, "bfloat16"):
+        for a, b in zip(cs.coarse_scan(_scaled("star"), *inp, dt, ts),
+                        cs.coarse_scan_reference(_scaled("star"), *inp, dt,
+                                                 ts)):
+            assert torch.equal(a, b)
     assert cs.coarse_scan.launches == before
+
+
+def test_scaled_table_and_wider_record_on_the_host():
+    """The (B, K) scale table the kernel takes is the plain version's
+    scale_fn at the pose times in the scan dtype, float32; the split model
+    evaluated at it equals the plain version bit for bit."""
+    shape = _scaled("sdRhombus")
+    ts = _times(2, 9, "cpu")
+    scl = cs.pose_scale(shape, ts, "bfloat16")
+    assert scl.dtype == torch.float32 and scl.shape == (2, 9)
+    want = shape.scale_fn(ts.to(torch.bfloat16)).float()
+    assert torch.equal(scl, want)
+    inp = _cpu_inputs()
+    for a, b in zip(cs.coarse_scan_split_reference(shape, *inp, 4,
+                                                   "bfloat16", ts),
+                    cs.coarse_scan_reference(shape, *inp, "bfloat16", ts)):
+        assert torch.equal(a, b)

@@ -32,7 +32,7 @@ from svsdf_tpu_torch.parallel import batch as pb
 from svsdf_tpu_torch.planner import back_end, mid_end, wavefront
 from svsdf_tpu_torch.planner.online import OnlineReplanner
 from svsdf_tpu_torch.planner.pipeline import Planner
-from svsdf_tpu_torch.utils import fixtures
+from svsdf_tpu_torch.utils import fixtures, lbfgs, lmbm
 from svsdf_tpu_torch.utils.config import PlannerConfig
 
 torch.set_num_threads(1)
@@ -71,7 +71,8 @@ def test_fresh_import_loads_no_jax():
             "svsdf_tpu_torch.planner.mid_end",
             "svsdf_tpu_torch.planner.astar",
             "svsdf_tpu_torch.planner.parity",
-            "svsdf_tpu_torch.utils.debugbus"} <= set(names)
+            "svsdf_tpu_torch.utils.debugbus",
+            "svsdf_tpu_torch.utils.lmbm"} <= set(names)
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", _PROBE, json.dumps(names)],
                          cwd=ROOT, env=env, capture_output=True, text=True,
@@ -143,3 +144,25 @@ def test_planner_entry_points_default_to_cuda(monkeypatch):
     # the host runs only when asked for
     assert Planner(sc.config, sc.map_points, device="cpu").feas.shape[0] \
         == sc.config.kernel_yaw_num
+
+
+def test_deformable_and_lmbm_entry_points_default_to_cuda(monkeypatch):
+    """A deformable scenario's Planner and the LMBM back end run on CUDA
+    unless asked for the host; a scaled shape is plain data."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sc = fixtures.deformable_scenario("deformable_star")
+    assert isinstance(sc.shape, shapes.ScaledShape) and sc.shape.time_varying
+    heart = shapes.make_scaled_shape("sdHeart", shapes.breathing_scale(
+        0.25, 0.8), kernel_scale=1.25)
+    assert float(heart.sdf_xy(torch.tensor(0.0), torch.tensor(2.0))) < 0.0
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Planner(sc.config, sc.map_points, shape=sc.shape)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Planner(sc.config, sc.map_points, solver="lmbm")
+    head = np.zeros((1, 3, 3))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        back_end.optimize(heart, head, head, np.zeros((1, 4, 2)),
+                          np.zeros((1, 9)), solver="lmbm")
+    x = torch.zeros((2, 3), dtype=torch.float64)
+    res = lmbm.minimize(lbfgs.value_and_grad(lambda v: (v * v).sum(-1)), x)
+    assert res.x.device.type == "cpu" and bool((res.f == 0.0).all())

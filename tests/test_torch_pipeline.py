@@ -268,8 +268,8 @@ def test_pad_obstacles_and_solver_check():
     assert padded.shape == (8, 3) and np.all(padded[3:, 0] > 1e3)
     assert pl._pad_obstacles(np.zeros((1, 3)), bucket=8).shape == (8, 3)
     fields, pts = corridor()
-    with pytest.raises(NotImplementedError, match="A16"):
-        Planner(PlannerConfig(**fields), pts, solver="lmbm", device="cpu")
+    with pytest.raises(ValueError, match="unknown back-end solver"):
+        Planner(PlannerConfig(**fields), pts, solver="bundle", device="cpu")
     assert pl.guard_ladder == [None]
     assert _planner().guard_ladder == [
         (dataclasses.asdict(PlannerConfig(**fields))["kernel_size"] // 2
