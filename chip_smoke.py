@@ -35,11 +35,12 @@ Phases, one line each (any failure raises and the exit code is not 0):
      cost/gradient evaluation on the card (float32) against the host
      (float64);
   6. batched end to end: plan_batch_e2e at bench_e2e's setting (forest
-     map, sdHeart, B=512, n=8, 48 obstacles, default_stages(40,
-     scan_dtype=None), 2-D front end, no refine rounds) — one warm-up,
+     map, sdHeart, B=512, n=8, 48 obstacles, default_stages(40):
+     bfloat16 scans, 2-D front end, no refine rounds) — one warm-up,
      then 3 timed runs on fresh start/goal draws, each closed by a host
      readback; every front end must reach its goal. Then one run under
-     torch.profiler, and the front end timed alone against a whole run;
+     torch.profiler, and the front end timed alone against a whole run.
+     The float32 variant (scan_dtype=None) follows, warm-up and 3 runs;
   7. online replanning: OnlineReplanner on each synthetic scenario with
      its default stages (default_stages_lowlat(50): bfloat16 scans; 3-D
      front end, route shaping, 2 certify-refine rounds), one replan each
@@ -84,6 +85,7 @@ Phases, one line each (any failure raises and the exit code is not 0):
      form);
  13. the LMBM back end: Planner(solver="lmbm") on synthetic_Circle (its
      back end runs), gated as in phase 9.
+Every line carries elapsed_s, the seconds since the script started.
 Phase 3's parity cases cover every body, the ten of phase 10 included,
 each bit for bit, and time each body at 512x64x96 against its bound.
 The coarse-scan launches are counted over each path (phases 4, 6, 7, 9,
@@ -182,7 +184,13 @@ COST_GATE = (0.3, 1.5)
 KERNEL_NAME = "coarse_scan_kernel"
 
 
+#: the script's start, on the host's clock
+T_START = time.perf_counter()
+
+
 def say(phase: str, **kv) -> None:
+    """One line of a phase, with the seconds since the script started."""
+    kv["elapsed_s"] = round(time.perf_counter() - T_START, 2)
     print(f"[{phase}] " + json.dumps(kv), flush=True)
 
 
@@ -274,24 +282,36 @@ def time_ms(torch, fn, reps=200):
     return start.elapsed_time(stop) / reps
 
 
-def device_ms(torch, fn, reps=50):
+def device_events(torch, prof):
+    """(name, device microseconds) of every device activity a finished
+    torch.profiler session recorded, read from its raw trace: building
+    the profiler's own event tree (prof.events(), key_averages()) for the
+    ~200 k launches of one solve takes the host tens of seconds, and
+    minutes for a Planner.plan, for the same sums."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name(), (e.end_ns() - e.start_ns()) / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda]
+
+
+def device_ms(torch, fn, reps=50, tries=3):
     """torch.profiler over ``reps`` calls of ``fn``: (mean device time of
-    one coarse-scan kernel launch in ms, or None if the profiler saw no
-    device time; launches seen)."""
+    one coarse-scan kernel launch in ms, launches seen). A session that
+    saw no launch of the kernel is repeated, up to ``tries`` sessions;
+    then (None, 0)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us, count = 0.0, 0
-    for evt in prof.key_averages():
-        if KERNEL_NAME in evt.key:
-            total_us += evt.device_time_total
-            count += evt.count
-    return (total_us / count / 1e3 if count and total_us > 0 else None,
-            count)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        scan = [us for name, us in device_events(torch, prof)
+                if KERNEL_NAME in name]
+        if scan and sum(scan) > 0:
+            return sum(scan) / len(scan) / 1e3, len(scan)
+    return None, 0
 
 
 def profile_solve(torch, run):
@@ -303,13 +323,12 @@ def profile_solve(torch, run):
         t0 = time.perf_counter()
         run()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.device_time_total for e in kernels)
+    kernels = device_events(torch, prof)
+    busy_us = sum(us for _, us in kernels)
     by_name = {}
-    for e in kernels:
-        n, us = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, us + e.device_time_total)
+    for name, us in kernels:
+        n, total = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, total + us)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
     scan = [v for k, v in by_name.items() if KERNEL_NAME in k]
     return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
@@ -370,9 +389,11 @@ class ShapeLog:
     def __exit__(self, *exc):
         self.cs._launch = self._orig
 
-    def summary(self):
+    def summary(self, form=None):
+        """'<shape> <form> BxMxK' of every launch, of ``form`` only if
+        given."""
         return sorted({f"{k[0]} {k[5]} {k[6]}x{k[7]}x{k[8]}"
-                       for k in self.seen})
+                       for k in self.seen if form in (None, k[5])})
 
     def check(self, torch, path, seed):
         """Kernel vs plain, bit for bit, on seeded inputs at every shape,
@@ -653,56 +674,75 @@ def main() -> int:
     xy_min_e = e2e.grid.xyz_min[:2].astype(np.float32)
     n_e, obs_e, batch_e = 8, 48, 512
 
-    def run_e2e(s, g, **kw):
+    def run_e2e(s, g, stages_, **kw):
         return pb.plan_batch_e2e(e2e.shape, e2e.feas, e2e.occ_pts, s, g, cfg,
-                                 stages, n_e, obs_e, res_e, xy_min_e, **kw)
+                                 stages_, n_e, obs_e, res_e, xy_min_e, **kw)
 
-    rng = np.random.default_rng(0)
-    cs.reset_launches()
-    with ShapeLog(cs) as e2e_log:
-        out = run_e2e(*e2e_draws(e2e.cells, batch_e, rng))
-        float(out.cost.sum())
-        walls, ok_shares, outs = [], [], []
-        for _ in range(3):
-            s, g = e2e_draws(e2e.cells, batch_e, rng)
-            t0 = time.perf_counter()
-            out = run_e2e(s, g)
+    def e2e_path(stages_, form, seed):
+        """One warm-up and 3 timed runs at ``stages_`` on fresh draws,
+        counted from 0; the kernel then held at every shape the path
+        launched. Returns (the path's launches by form, its ShapeLog, the
+        last draws)."""
+        rng = np.random.default_rng(0)
+        cs.reset_launches()
+        with ShapeLog(cs) as log:
+            out = run_e2e(*e2e_draws(e2e.cells, batch_e, rng), stages_)
             float(out.cost.sum())
-            walls.append(time.perf_counter() - t0)
-            ok_shares.append(float(out.front_ok.float().mean()))
-            outs.append(out)
-    e2e_launches = cs.coarse_scan.launches
-    if e2e_launches <= 0:
-        raise AssertionError("the e2e path launched no coarse-scan kernel")
-    e2e_log.check(torch, "e2e", seed=2000)
-    if min(ok_shares) < 1.0:
-        raise AssertionError(f"e2e front end missed goals: {ok_shares}")
-    for o in outs:
-        if not (torch.isfinite(o.cost).all() and torch.isfinite(o.x).all()
-                and torch.isfinite(o.cert_min).all()
-                and o.coeffs.shape == (batch_e, n_e, 6, 3)):
-            raise AssertionError("e2e output not finite / wrong shape")
-    wall = statistics.median(walls)
-    say("e2e", B=batch_e, n=n_e, n_obs=obs_e, iters=iters, wall_s=walls,
-        median_wall_s=wall, e2e_plans_per_s=batch_e / wall,
-        front_ok_share=ok_shares,
-        median_cost=statistics.median(float(o.cost.median()) for o in outs),
-        median_cert_min=statistics.median(float(o.cert_min.median())
+            walls, ok_shares, outs = [], [], []
+            for _ in range(3):
+                s, g = e2e_draws(e2e.cells, batch_e, rng)
+                t0 = time.perf_counter()
+                out = run_e2e(s, g, stages_)
+                float(out.cost.sum())
+                walls.append(time.perf_counter() - t0)
+                ok_shares.append(float(out.front_ok.float().mean()))
+                outs.append(out)
+        total = cs.coarse_scan.launches
+        by_form = dict(cs.coarse_scan.form_launches)
+        launches_ = by_form[form]
+        if launches_ <= 0:
+            raise AssertionError(f"the e2e path ({form} scans) launched no "
+                                 "coarse-scan kernel of that form")
+        log.check(torch, f"e2e {form}", seed=seed)
+        if min(ok_shares) < 1.0:
+            raise AssertionError(f"e2e front end missed goals: {ok_shares}")
+        for o in outs:
+            if not (torch.isfinite(o.cost).all() and torch.isfinite(o.x).all()
+                    and torch.isfinite(o.cert_min).all()
+                    and o.coeffs.shape == (batch_e, n_e, 6, 3)):
+                raise AssertionError("e2e output not finite / wrong shape")
+        wall = statistics.median(walls)
+        say("e2e", scan=form, B=batch_e, n=n_e, n_obs=obs_e, iters=iters,
+            wall_s=walls, median_wall_s=wall, e2e_plans_per_s=batch_e / wall,
+            front_ok_share=ok_shares,
+            median_cost=statistics.median(float(o.cost.median())
                                           for o in outs),
-        kernel_launches=e2e_launches, launches_per_run=e2e_launches / 4)
-    say("e2e_profile", B=batch_e, **profile_solve(
-        torch, lambda: float(run_e2e(s, g).cost.sum())))
+            median_cert_min=statistics.median(float(o.cert_min.median())
+                                              for o in outs),
+            kernel_launches=total, form_launches=by_form,
+            launches_per_run=launches_ / 4)
+        return by_form, log, (s, g)
+
+    # bench.py::bench_e2e's configuration: default_stages(40), bfloat16
+    # scans
+    e2e_stages = pb.default_stages(iters)
+    e2e_by_form, e2e_log, (s, g) = e2e_path(e2e_stages, "bfloat16",
+                                            seed=2000)
+    say("e2e_profile", scan="bfloat16", B=batch_e, **profile_solve(
+        torch, lambda: float(run_e2e(s, g, e2e_stages).cost.sum())))
     # the front end alone against whole runs, alternated
     fronts, wholes = [], []
     for _ in range(2):
         fronts.append(timed(torch, lambda: pb.front_end(
             e2e.feas, e2e.occ_pts, s, g, cfg, n_e, obs_e, res_e,
             xy_min_e))[1])
-        wholes.append(timed(torch, lambda: run_e2e(s, g))[1])
+        wholes.append(timed(torch, lambda: run_e2e(s, g, e2e_stages))[1])
     say("e2e_front_end", front_end_s=fronts, whole_s=wholes,
         front_end_share=statistics.median(fronts) / statistics.median(wholes),
         solve_and_certificate_share=1.0 - statistics.median(fronts)
         / statistics.median(wholes))
+    # the float32 variant
+    e2e_f32_by_form, e2e_f32_log, _ = e2e_path(stages, "float32", seed=2500)
 
     # -- 7. online replanning ------------------------------------------
     # the JAX package's settings: bfloat16 scans
@@ -773,8 +813,8 @@ def main() -> int:
             refine_solves=nr)
         jittered(rp, "forest_sdHeart", start_f, goal_f, product, solves,
                  "forest map, bench.py::_real_replan's settings")
-    replan_launches = cs.coarse_scan.form_launches["bfloat16"]
-    if replan_launches <= 0:
+    replan_by_form = dict(cs.coarse_scan.form_launches)
+    if replan_by_form["bfloat16"] <= 0:
         raise AssertionError("the replan path launched no bfloat16 "
                              "coarse-scan kernel")
     say("replan_launches", kernel_launches=cs.coarse_scan.launches,
@@ -791,7 +831,7 @@ def main() -> int:
     s32, g32 = e2e_draws(e2e.cells, 32, np.random.default_rng(7))
 
     def refine_e2e():
-        return run_e2e(s32, g32, refine_rounds=2, trans_feas=trans3,
+        return run_e2e(s32, g32, stages, refine_rounds=2, trans_feas=trans3,
                        cell_cost=cc3, cert_margin=0.25 * cfg_f.safety_hor)
 
     sc = fixtures.synthetic_scenario("Polygon")
@@ -1057,12 +1097,18 @@ def main() -> int:
     print(json.dumps({"kernels": [
         kernel_entry(
             "float32", launches, timings[0],
-            launches_by_path={"main": launches, "e2e": e2e_launches,
+            launches_by_path={"main": launches,
+                              "e2e": e2e_by_form["float32"],
+                              "e2e_float32": e2e_f32_by_form["float32"],
+                              "replan": replan_by_form["float32"],
                               "planner": planner_launches,
                               "staged_bodies": body_launches,
                               "grid": grid_launches,
                               "lmbm_planner": lmbm_launches},
-            shapes_ran={"main": main_log.summary(), "e2e": e2e_log.summary(),
+            shapes_ran={"main": main_log.summary("float32"),
+                        "e2e": e2e_log.summary("float32"),
+                        "e2e_float32": e2e_f32_log.summary("float32"),
+                        "replan": replan_log.summary("float32"),
                         "planner": plan_log.summary(),
                         "staged_bodies": body_logs,
                         "grid": grid_log.summary(),
@@ -1074,19 +1120,23 @@ def main() -> int:
             "bfloat16", bf16_launches, form_times["bfloat16"][0],
             counterpart_of=xla_scan,
             launches_by_path={"main": bf16_launches,
-                              "replan": replan_launches},
-            shapes_ran={"main": bf16_log.summary(),
-                        "replan": replan_log.summary()},
+                              "e2e": e2e_by_form["bfloat16"],
+                              "replan": replan_by_form["bfloat16"]},
+            shapes_ran={"main": bf16_log.summary("bfloat16"),
+                        "e2e": e2e_log.summary("bfloat16"),
+                        "replan": replan_log.summary("bfloat16")},
             main_path_median_cost=bf16_cost,
             grid_scan=form_times["bfloat16"][1]),
         kernel_entry(
             "scaled_float32", deform_launches,
             form_times["scaled_float32"][0], counterpart_of=xla_scan,
-            shapes_ran={"deformable_planner": deform_log.summary()}),
+            shapes_ran={"deformable_planner":
+                        deform_log.summary("scaled_float32")}),
         kernel_entry(
             "scaled_bfloat16", deform_bf16_launches,
             form_times["scaled_bfloat16"][0], counterpart_of=xla_scan,
-            shapes_ran={"deformable_staged": deform_staged_log.summary()}),
+            shapes_ran={"deformable_staged":
+                        deform_staged_log.summary("scaled_bfloat16")}),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Time this tree's coarse-scan kernel against another tree's, in turns,
-on one NVIDIA card.
+on one NVIDIA card, in each of its four forms.
 
     python3 scan_ab.py OTHER_TREE [--log SMOKE_LOG] [--out FILE]
     python3 scan_ab.py --sass [--out FILE]
@@ -8,25 +8,28 @@ on one NVIDIA card.
 OTHER_TREE is a second checkout of the repository (for instance the
 parent commit unpacked with ``git archive`` into a git-ignored
 directory); its ``svsdf_tpu_torch/ops/cuda_svsdf.py`` builds its own
-kernel from its own sources into its own ``build/kernels/``. The shapes
-(body, B, M, K): chip_smoke.py's phase-3 shapes (main, e2e, single plan,
-grid query), every body at 512x64x96, and every shape that the
-``path_scans`` lines of a chip_smoke.py log (``--log``) name. At each,
-both kernels are first held bit for bit against the plain version on
-seeded inputs, then each kernel's device time per launch is read with
-torch.profiler in the order other, this, this, other. At phase 3's
-shapes this kernel is also timed at every lane count S <= min(32, K),
-which ``launch_geometry`` chooses among, in turns (S ascending, then
-descending). Prints one JSON line per shape, a summary line, the card's
-name and power limit; writes all of it to ``--out`` as JSON.
+kernel from its own sources into its own ``build/kernels/``. The cases
+(body, form, B, M, K): chip_smoke.py's phase-3 shapes (main, e2e, single
+plan, grid query) for sdHeart in float32 and in bfloat16, every body at
+512x64x96 in float32 and in bfloat16, the deformable sdHeart (both scan
+types) at 512x64x96, and every shape and form that the ``path_scans``
+lines of a chip_smoke.py log (``--log``) name. At each, both kernels are
+first held bit for bit against the plain version on seeded inputs, then
+each kernel's device time per launch is read with torch.profiler in the
+order other, this, this, other. At sdHeart's 512x64x96 and grid shapes
+this kernel is also timed at every lane count S <= min(32, K), which
+``launch_geometry`` chooses among, in turns (S ascending, then
+descending), in both scan types. Prints one JSON line per case, a
+summary line, the card's name and power limit; writes all of it to
+``--out`` as JSON.
 
 ``--sass`` instead compiles this tree's kernel to a cubin with the
 wrapper's nvcc flags and reads it with cuobjdump (no card needed): for
-each body's kernel, its SASS instruction count and its loops (a backward
-branch and the instructions it spans), largest first, with the opcodes
-in each. The scan's unrolled loop holds four evaluations and its
-remainder loop one, so these give the static instructions an
-evaluation issues.
+each body and form, its SASS instruction count and its loops (a
+backward branch and the instructions it spans), largest first, with the
+opcodes in each. The scan's unrolled loop holds four poses in every
+form (four evaluations in float32, two packed ones in bfloat16), so its
+count over 4 is the static instructions a pose costs.
 """
 
 from __future__ import annotations
@@ -55,14 +58,15 @@ def load_other(tree: str):
 
 
 def shapes_from_log(path: str):
-    """(body, B, M, K) of every path_scans line of a chip_smoke.py log."""
+    """(body, form, B, M, K) of every path_scans line of a chip_smoke.py
+    log."""
     found = []
     with open(path) as f:
         for line in f:
             if line.startswith("[path_scans] "):
                 for item in json.loads(line[len("[path_scans] "):])["shapes"]:
-                    name, bmk = item.split()
-                    found.append((name, *map(int, bmk.split("x"))))
+                    name, form, bmk = item.split()
+                    found.append((name, form, *map(int, bmk.split("x"))))
     return found
 
 
@@ -74,12 +78,32 @@ _SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
 _SASS_BRA = re.compile(r"\bBRA(?:\.\S+)?\s+(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))")
 
 
-def kernel_body(mangled: str) -> str:
-    """The body name inside coarse_scan_kernel<...>'s mangled name."""
-    m = re.search(r"coarse_scan_kernelIN\w*?_(\d+)", mangled)
-    if not m:
+#: poses the scan's unrolled loop evaluates, in every form
+POSES_PER_UNROLLED_LOOP = 4
+
+
+def kernel_form(mangled: str) -> str:
+    """'<body> <form>' of a coarse_scan_kernel<Shape, T, kScaled>
+    instance from its mangled name: the body struct's length-prefixed
+    name, in the file's anonymous namespace ('NS_', nvcc's substitution
+    for it, or g++'s 'N12_GLOBAL__N_1') or not, then T, float ('f') or
+    Bf2, and kScaled, 'Lb0E' or 'Lb1E'. Any other kernel keeps its
+    mangled name; a coarse_scan_kernel instance that does not parse
+    raises."""
+    if "coarse_scan_kernel" not in mangled:
         return mangled
-    return mangled[m.end():m.end() + int(m.group(1))]
+    m = re.search(r"coarse_scan_kernelI(NS\d*_|N12_GLOBAL__N_1)?(\d+)",
+                  mangled)
+    if m:
+        n, end = int(m.group(2)), m.end()
+        body = mangled[end:end + n]
+        rest = re.match(r"%s(f|\w*?Bf2E)Lb([01])E" % ("E" if m.group(1)
+                                                      else ""),
+                        mangled[end + n:])
+    if not (m and rest and re.fullmatch(r"[A-Za-z_]\w*", body)):
+        raise ValueError(f"unparsed coarse_scan_kernel instance {mangled}")
+    return "%s %s%s" % (body, "scaled_" if rest.group(2) == "1" else "",
+                        "float32" if rest.group(1) == "f" else "bfloat16")
 
 
 def parse_sass(text: str):
@@ -110,10 +134,12 @@ def parse_sass(text: str):
                           "instructions": sum(ops.values()),
                           "ops": dict(ops.most_common())})
         loops.sort(key=lambda lp: -lp["instructions"])
-        kernels[kernel_body(name)] = {
+        kernels[kernel_form(name)] = {
             "instructions": sum(1 for _, t in instrs
                                 if not t.lstrip().startswith("NOP")),
             "span": [hex(addrs[0]), hex(addrs[-1])] if addrs else None,
+            "per_pose": (loops[0]["instructions"] / POSES_PER_UNROLLED_LOOP
+                         if loops else None),
             "loops": loops}
 
     for line in text.splitlines():
@@ -171,6 +197,7 @@ def main() -> int:
         for body, k in report["kernels"].items():
             print("[sass] " + json.dumps(
                 {"body": body, "instructions": k["instructions"],
+                 "per_pose": k["per_pose"],
                  "loops": [{key: lp[key] for key in ("instructions", "ops")}
                            for lp in k["loops"][:3]]}), flush=True)
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
@@ -185,44 +212,61 @@ def main() -> int:
         raise RuntimeError("scan_ab.py needs a CUDA card")
     from svsdf_tpu_torch.models import shapes
     from svsdf_tpu_torch.ops import cuda_svsdf as this
+    from svsdf_tpu_torch.utils import fixtures
 
     other = load_other(args.other)
     if os.path.samefile(other.SOURCE, this.SOURCE):
         raise ValueError("the other tree is this tree")
     card = smoke.smi_line()
+    # the deformable scenarios' robots by body, for the scaled forms
+    robots = {}
+    for scenario in fixtures.list_deformable_scenarios():
+        robot = fixtures.deformable_scenario(scenario).shape
+        robots[robot.name] = robot
     table_shapes = (smoke.MAIN_SHAPES + smoke.E2E_SHAPES
                     + smoke.PLANNER_SHAPES + (smoke.GRID_SHAPE,))
-    cases = [("sdHeart", *sh) for sh in table_shapes]
-    cases += [(name, *smoke.BODY_TIME_SHAPE)
-              for name in tuple(shapes.shape_names()) + ("Polygon",)]
+    bodies = tuple(shapes.shape_names()) + ("Polygon",)
+    sweep = (smoke.BODY_TIME_SHAPE, smoke.GRID_SHAPE)
+    cases = []
+    for form in ("float32", "bfloat16"):
+        cases += [("sdHeart", form, *sh) for sh in table_shapes]
+        cases += [(name, form, *smoke.BODY_TIME_SHAPE) for name in bodies]
+    cases += [("sdHeart", form, *smoke.BODY_TIME_SHAPE)
+              for form in ("scaled_float32", "scaled_bfloat16")]
     if args.log:
         cases += shapes_from_log(args.log)
     cases = list(dict.fromkeys(cases))            # first seen, once each
 
     rows = []
-    for i, (name, b, m, k) in enumerate(cases):
-        shape = shapes.make_shape(name)
+    for i, (name, form, b, m, k) in enumerate(cases):
+        scaled, bf16 = form.startswith("scaled"), form.endswith("bfloat16")
+        shape = robots[name] if scaled else shapes.make_shape(name)
+        dt = "bfloat16" if bf16 else None
         inp = smoke.scan_inputs(torch, b, m, k, seed=7000 + i)
+        ts = smoke.pose_times(torch, b, k, seed=7000 + i)
+        kw = dict(scan_dtype=dt, ts=ts)
         for mod in (other, this):
-            smoke.compare_scan(torch, mod, shape, inp, 1e-5)
+            smoke.compare_scan(torch, mod, shape, inp, 1e-5, dt, ts)
         turns = {}
         for label, mod in (("other", other), ("this", this), ("this", this),
                            ("other", other)):
             ms, _ = smoke.device_ms(
-                torch, lambda: mod.coarse_scan(shape, *inp), reps=args.reps)
+                torch, lambda: mod.coarse_scan(shape, *inp, **kw),
+                reps=args.reps)
             if ms is None:
                 raise RuntimeError("torch.profiler saw no device time")
             turns.setdefault(label, []).append(ms)
         by_lanes = {}
-        if name == "sdHeart" and (b, m, k) in table_shapes:
+        if name == "sdHeart" and not scaled and (b, m, k) in sweep:
             lanes = [s for s in (1, 2, 4, 8, 16, 32) if s <= k]
             for s in lanes + lanes[::-1]:
                 geo = this.block_shape(b, m, s)
                 by_lanes.setdefault(s, []).append(smoke.device_ms(
-                    torch, lambda: this.launch(shape, *inp, s, *geo),
+                    torch, lambda: this.launch(shape, *inp, s, *geo,
+                                               bf16=bf16),
                     reps=args.reps)[0])
-        bound, by = smoke.scan_bound_ms(shape, b, m, k)
-        row = {"shape": name, "B": b, "M": m, "K": k,
+        bound, by = smoke.scan_bound_ms(shape, b, m, k, bf16=bf16)
+        row = {"shape": name, "form": form, "B": b, "M": m, "K": k,
                "geometry": this.launch_geometry(b, m, k),
                "other_ms": turns["other"], "this_ms": turns["this"],
                "speedup": statistics.median(turns["other"])
@@ -235,8 +279,8 @@ def main() -> int:
                "this_ms_by_lanes": by_lanes, "bitwise": True}
         rows.append(row)
         print("[ab] " + json.dumps(row), flush=True)
-    slower = [f"{r['shape']} {r['B']}x{r['M']}x{r['K']}" for r in rows
-              if r["slower_beyond_spread"]]
+    slower = [f"{r['shape']} {r['form']} {r['B']}x{r['M']}x{r['K']}"
+              for r in rows if r["slower_beyond_spread"]]
     summary = {"shapes": len(rows), "slower_beyond_spread": slower,
                "speedup_min": min(r["speedup"] for r in rows),
                "speedup_max": max(r["speedup"] for r in rows),

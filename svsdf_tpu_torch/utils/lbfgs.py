@@ -49,6 +49,9 @@ class LBFGSParams:
     max_nulls: int = 12         # consecutive null steps before giving up
     #: >0: parallel line search over this many geometric trial steps
     ls_candidates: int = 0
+    #: accepted and ignored: in JAX the unroll factor of the two-loop
+    #: recursion's lax.scan; the eager loop here has nothing to unroll
+    scan_unroll: int = 4
     #: inverse-Hessian apply: compact representation (None -> True, the
     #: JAX package's default) or the two-loop recursion (False)
     compact: bool | None = None

@@ -182,3 +182,29 @@ def test_plan_batch_staged_default_stages_matches_jax():
                                rtol=1e-6)
     np.testing.assert_allclose(res.opt_x.numpy(), np.asarray(jres.opt_x),
                                atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("s", [1, 2, 4, 8, 16, 32])
+def test_split_argmin_on_bf16_tie_rows(s):
+    """The split reduction on bfloat16 rows that tie everywhere (values
+    from {-1/4, ..., 1/4} in steps of 1/8, signed zeros in both orders,
+    all +inf, the minimum last): the first argmin and the winner's bits
+    of torch.min, for every S and odd and even per-lane counts (K < S
+    included). The packed forms' pair order, (k, k+S) low half first
+    with a +inf dead half after an odd count, takes the same k in the
+    same order as a lane's plain walk, so this model is theirs too; the
+    pair records' layout is held on the card."""
+    rng = np.random.default_rng(s)
+    ties = 0
+    for k in (1, 2, 3, 5, 37, 64):
+        rows = rng.integers(-2, 3, (60, k)) * 0.125
+        rows[:4] = np.inf
+        rows[4:12] = np.where(rng.uniform(size=(8, k)) < 0.5, 0.0, -0.0)
+        rows[12:16, -1] = -1.0
+        f = torch.as_tensor(rows, dtype=torch.float32).to(BF16)
+        best, arg = cs.split_argmin(f, s)
+        want, want_arg = torch.min(f, dim=-1)
+        assert torch.equal(arg, want_arg)
+        assert torch.equal(best.view(torch.int16), want.view(torch.int16))
+        ties += int(((f == want[:, None]).sum(-1) > 1).sum())
+    assert ties > 100

@@ -7,18 +7,30 @@ package, so on a card whose installation has no JAX it runs alone:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernel.py
 
-The other tests hold the wrapper's argument checks, which run before
-anything touches the card.
+Beside the float32 form's parity cases, the card tests hold both
+packed bfloat16 forms on every body and lane count, ties, signed zeros,
+NaN and subnormals, and force three paths on the card (GSIP at K = 64,
+certify-refine re-solves in a replan, the retry ladder's fine-yaw
+rungs), holding every launch they make. The other tests hold the
+wrapper's argument checks, which run before anything touches the card.
 """
 
 import dataclasses
+from unittest import mock
 
 import numpy as np
 import pytest
 import torch
 
+from svsdf_tpu_torch.bench import grid_setup
 from svsdf_tpu_torch.models import shapes
 from svsdf_tpu_torch.ops import cuda_svsdf as cs
+from svsdf_tpu_torch.ops.svsdf import SVSDFConfig, svsdf_query
+from svsdf_tpu_torch.parallel import batch as pb
+from svsdf_tpu_torch.planner.online import OnlineReplanner
+from svsdf_tpu_torch.planner.pipeline import Planner
+from svsdf_tpu_torch.utils import fixtures
+from svsdf_tpu_torch.utils import trajectory as trj
 
 torch.set_num_threads(1)
 
@@ -367,3 +379,277 @@ def test_scaled_table_and_wider_record_on_the_host():
                                                    "bfloat16", ts),
                     cs.coarse_scan_reference(shape, *inp, "bfloat16", ts)):
         assert torch.equal(a, b)
+
+
+# -- the packed bfloat16 forms (bfloat16x2: two poses an evaluation) -------
+
+def _assert_bits_equal(got, want):
+    """Outputs bit for bit, -0.0 told from +0.0; a NaN matches a NaN (its
+    payload is not compared)."""
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        a, b = a.cpu(), b.cpu()
+        if a.dtype != torch.float32:
+            assert torch.equal(a, b)
+            continue
+        nan = torch.isnan(a)
+        assert torch.equal(nan, torch.isnan(b))
+        zero = torch.zeros_like(a)
+        assert torch.equal(torch.where(nan, zero, a).view(torch.int32),
+                           torch.where(nan, zero, b).view(torch.int32))
+
+
+def _packed_launch(shape, inp, lanes, ts=None):
+    """The bfloat16 form at S lanes and its block_shape; a deformable
+    robot at the scale table of its pose times."""
+    b, m = inp[0].shape[:2]
+    scale = None if ts is None else cs.pose_scale(shape, ts, "bfloat16")
+    return cs.launch(shape, *inp, lanes, *cs.block_shape(b, m, lanes),
+                     bf16=True, scale=scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, form", [
+    *((name, "bfloat16") for name in cs.SHAPE_IDS),
+    *((name, "scaled_bfloat16")
+      for name in ("sdHeart", "sdRhombus", "star", "Polygon"))])
+def test_packed_form_every_lane_count(name, form):
+    """Both packed forms: every body, and the deformable form on the
+    deformable scenarios' bodies and Polygon. Each S forced, K = 1 and 3
+    (K < S from S = 4 up), 37 (lanes with odd and even pose counts: a
+    dead half in the last pair) and 64 (even counts), on inputs built to
+    tie; bit for bit against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    scaled = form == "scaled_bfloat16"
+    pre = (0.3, -0.2, 25.0)
+    shape = _scaled(name, pre) if scaled else shapes.make_shape(
+        name, poly_params=pre)
+    for lanes in (1, 2, 4, 8, 16, 32):
+        for k in (1, 3, 37, 64):
+            inp = _tie_inputs(3, 301, k, seed=k, device="cuda")
+            ts = _times(3, k, "cuda") if scaled else None
+            before = cs.coarse_scan.launches
+            got = _packed_launch(shape, inp, lanes, ts)
+            want = cs.coarse_scan_reference(shape, *inp,
+                                            scan_dtype="bfloat16", ts=ts)
+            torch.cuda.synchronize()
+            assert cs.coarse_scan.launches == before + 1
+            _assert_bits_equal(got, want)
+
+
+def _tiny_inputs(b, m, k, scale, device):
+    """cos and sin times ``scale``: the pose transform's products and the
+    bodies' squares land at bfloat16's smallest normal (2^-126) and among
+    its subnormals, where an instruction that flushed them would show."""
+    pts, xy, c, s = _inputs(b, m, k, seed=11, device="cpu")
+    # half the points a little off the pose path, so p - c is small too
+    near = xy[:, torch.arange(m // 2) % k] + 0.01 * pts[:, : m // 2]
+    pts = torch.cat([near, pts[:, m // 2:]], 1)
+    return tuple(t.contiguous().to(device)
+                 for t in (pts, xy, c * scale, s * scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(cs.SHAPE_IDS))
+def test_packed_form_smallest_normal_and_subnormal(name):
+    """Values at and below bfloat16's smallest normal: rigid bodies with
+    tiny cos and sin, and a deformable robot whose scales are subnormal
+    too, so s * body(q / s) is; bit for bit against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    shape = shapes.make_shape(name)
+    tiny = shapes.make_scaled_shape(name, lambda t: 2.0 ** -130 * (
+        1.0 + 0.5 * torch.sin(t)))
+    subnormal = 0
+    for scale in (2.0 ** -60, 2.0 ** -63, 2.0 ** -66, 2.0 ** -70,
+                  2.0 ** -128):
+        inp = _tiny_inputs(2, 256, 40, scale, "cuda")
+        ts = _times(2, 40, "cuda")
+        for sh, t in ((shape, None), (tiny, ts)):
+            got = cs.coarse_scan(sh, *inp, scan_dtype="bfloat16", ts=t)
+            want = cs.coarse_scan_reference(sh, *inp, scan_dtype="bfloat16",
+                                            ts=t)
+            _assert_bits_equal(got, want)
+            v = torch.stack([got[0], got[2], got[3]]).abs()
+            subnormal += int(((v > 0) & (v < 2.0 ** -126)).sum())
+    assert subnormal > 0            # subnormal values reached the outputs
+
+
+def _signed_zero_nan_inputs(device):
+    """Signed zeros and NaN where the bodies take min, max, abs and their
+    selects: points on the pose centres (p - c = +-0), poses at yaw
+    multiples of pi/2 with signed-zero cos and sin, points and a pose with
+    a NaN coordinate."""
+    b, m, k = 2, 96, 37
+    pts, xy, c, s = (t.clone() for t in _inputs(b, m, k, seed=13,
+                                                device="cpu"))
+    axes = torch.tensor([[1.0, 0.0], [-0.0, 1.0], [-1.0, -0.0],
+                         [0.0, -1.0], [-0.0, -1.0], [1.0, -0.0]])
+    c[:, ::2] = axes[torch.arange(0, k, 2) % 6, 0]
+    s[:, ::2] = axes[torch.arange(0, k, 2) % 6, 1]
+    xy[:, ::3] = torch.tensor([[0.0, -0.0], [-0.0, 0.0]])[
+        torch.arange(0, k, 3) % 2]
+    pts[:, :40] = xy[:, torch.arange(40) % k]
+    pts[:, 40:48] = torch.tensor([[-0.0, 0.0], [0.0, -0.0], [-0.0, -0.0],
+                                  [0.0, 0.0]])[torch.arange(8) % 4]
+    pts[:, 48:52, 0] = float("nan")
+    pts[:, 52:56, 1] = float("nan")
+    xy[1, 5, 0] = float("nan")
+    c[1, 7] = float("nan")
+    return tuple(t.contiguous().to(device) for t in (pts, xy, c, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scan_dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("name", list(cs.SHAPE_IDS))
+def test_signed_zeros_and_nan(name, scan_dtype):
+    """-0.0 and NaN through the bodies' min, max and selects, in float32
+    and bfloat16, at S = 1, the geometry's S and 32: bit for bit (signs
+    of zero told apart) against the plain model of the kernel's
+    algorithm on the card, which takes the plain version's values and
+    the kernel's rule that a NaN never wins (torch.min would return
+    it)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    shape = shapes.make_shape(name)
+    inp = _signed_zero_nan_inputs("cuda")
+    b, m = inp[0].shape[:2]
+    k = inp[1].shape[1]
+    bf16 = scan_dtype is not None
+    for lanes in sorted({1, cs.launch_geometry(b, m, k)[0], 32}):
+        got = cs.launch(shape, *inp, lanes, *cs.block_shape(b, m, lanes),
+                        bf16=bf16)
+        want = cs.coarse_scan_split_reference(shape, *inp, lanes,
+                                              scan_dtype)
+        _assert_bits_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_packed_table_counts_pair_records():
+    """The bfloat16 form stages 16 bytes a pair of poses: 3073 poses,
+    past the float form's 48 KB, fit; 6200 (S=1: 3100 records, 49,600
+    bytes) do not, and the wrapper raises, counting nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    heart = shapes.make_shape("sdHeart")
+    _assert_form_equals_plain(heart, _inputs(1, 64, 3073, seed=0,
+                                             device="cuda"), "bfloat16")
+    before = cs.coarse_scan.launches
+    with pytest.raises(RuntimeError, match="cudaError"):
+        _packed_launch(heart, _inputs(1, 64, 6200, seed=0, device="cuda"), 1)
+    assert cs.coarse_scan.launches == before
+
+
+# -- paths the card had not run: each forced, the kernel then held against
+# -- the plain scan on the inputs of every launch it made
+
+#: scripts/run_scenarios.py's SVSDF settings (GSIP at K = 64)
+RUN_SCENARIOS_SVS = dict(coarse_n=128, refine_rounds=2, gsip_iters=6,
+                         gsip_coarse_n=64, gsip_refine_rounds=1,
+                         gsip_topk=16, refine_interp_n=512)
+
+
+class _LaunchLog:
+    """Keeps the inputs of every kernel launch while active (wrapping the
+    wrapper's launch function); ``check`` then holds the kernel against
+    the plain version on each, bit for bit."""
+
+    def __enter__(self):
+        self.calls, self._orig = [], cs._launch
+
+        def logged(shape, points, xy, cos, sin, scan_dtype=None, ts=None):
+            self.calls.append((shape, (points.clone(), xy.clone(),
+                                       cos.clone(), sin.clone()),
+                               scan_dtype, None if ts is None else ts.clone()))
+            return self._orig(shape, points, xy, cos, sin, scan_dtype, ts)
+        cs._launch = logged
+        return self
+
+    def __exit__(self, *exc):
+        cs._launch = self._orig
+
+    def ks(self):
+        return {c[1][1].shape[1] for c in self.calls}
+
+    def check(self):
+        assert self.calls
+        for shape, inp, scan_dtype, ts in self.calls:
+            _assert_form_equals_plain(shape, inp, scan_dtype, ts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scan_dtype", [None, "bfloat16"])
+def test_gsip_at_k64_on_card(scan_dtype):
+    """svsdf_query at run_scenarios.py's settings on points inside the
+    swept volume of the grid query's trajectory: GSIP's boundary scans
+    run at K = 64; every launch bit for bit, and the query the same with
+    the plain scan."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    gq = grid_setup(device="cuda")
+    t = torch.linspace(0.5, 8.5, 48, device="cuda")[None]
+    rng = np.random.default_rng(0)
+    off = torch.as_tensor(rng.uniform(-0.6, 0.6, (1, 48, 2)),
+                          dtype=torch.float32, device="cuda")
+    far = torch.as_tensor(rng.uniform(-4, 14, (1, 16, 2)),
+                          dtype=torch.float32, device="cuda")
+    pts = torch.cat([trj.pos(gq.traj, t)[..., :2] + off, far], 1)
+    cfg = SVSDFConfig(**RUN_SCENARIOS_SVS, scan_dtype=scan_dtype)
+    with _LaunchLog() as log:
+        got = svsdf_query(gq.shape, gq.traj, pts, cfg)
+    assert 64 in log.ks()
+    assert bool((got.sdf < 0).any())
+    log.check()
+    with mock.patch.object(cs, "coarse_scan", cs.coarse_scan_reference):
+        want = svsdf_query(gq.shape, gq.traj, pts, cfg)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_replan_certify_refine_resolves_on_card():
+    """A replan at the replanner's default (bfloat16) stages with a
+    certificate margin above any certificate the gate map allows: both
+    certify-refine rounds re-solve. Every launch bit for bit, and the
+    replan the same with the plain scan."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    sc = fixtures.synthetic_scenario("sdMoon")
+    rp = OnlineReplanner(sc.config, sc.map_points, cert_margin=10.0)
+    with _LaunchLog() as log, mock.patch.object(
+            pb.lbfgs, "minimize", wraps=pb.lbfgs.minimize) as solves:
+        r = rp.replan(sc.start[:2], sc.goal[:2])
+    assert r.success
+    assert solves.call_count > len(rp.stages)       # re-solves ran
+    log.check()
+    with mock.patch.object(cs, "coarse_scan", cs.coarse_scan_reference):
+        p = rp.replan(sc.start[:2], sc.goal[:2])
+    assert (r.cost, r.cert_min) == (p.cost, p.cert_min)
+
+
+@pytest.mark.cuda
+def test_planner_tight_gate_reaches_refine_and_fine_yaw_on_card():
+    """Planner.plan on synthetic_Circle with a certificate gate 1.5 m
+    tighter than the map's (no trajectory passes it): the attempt's
+    certify-refine re-solves, then the retry ladder's fine-yaw rungs x2
+    and x4. Every launch bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    sc = fixtures.synthetic_scenario("Circle")
+    pl = Planner(sc.config, sc.map_points,
+                 svs_cfg=SVSDFConfig(**RUN_SCENARIOS_SVS))
+    certify = Planner.certify
+
+    def tight(self, traj):
+        pts, sdf = certify(self, traj)
+        return pts, sdf - 1.5
+
+    with mock.patch.object(Planner, "certify", tight), _LaunchLog() as log:
+        res = pl.plan(sc.start, sc.goal, mid_iters=20, back_iters=20,
+                      certify_rounds=1, certify_retries=0)
+    rungs = res.timings["attempt_log"]
+    assert [a["rung"] for a in rungs] == [0, "fine_yaw_x2", "fine_yaw_x4"]
+    assert rungs[0]["refine_rounds"] >= 1
+    assert res.success and not res.certified
+    log.check()

@@ -132,3 +132,35 @@ def test_resample_and_harvest_helpers():
     occ = torch.as_tensor([[5.0, 1.0], [5.0, -1.0], [0.0, 9.0]])
     got = pb._harvest_topm(occ, torch.as_tensor([[[5.0, 0.0, 0.0]]]), 2)
     np.testing.assert_array_equal(got[0].numpy(), occ[:2].numpy())
+
+
+def test_plan_batch_e2e_default_stages_matches_jax():
+    """B=3 on the corridor at the JAX package's default schedule,
+    default_stages(8): the fast and polish stages' scans (and GSIP's) in
+    bfloat16 on both sides, float64 elsewhere (a float32 JAX solve under
+    the tests' x64 mode is mixed precision, see
+    test_torch_bf16_scan.py). The front end agrees exactly; the solve at
+    _compare's tolerances and, tighter, at rtol 1e-9 in cost and 1e-9 m
+    in the certificate (measured here: 1.2e-13 and 2.9e-13)."""
+    grid, feas, occ = _corridor()
+    xy_min = grid.xyz_min[:2].astype(np.float32)
+    starts = np.asarray([[3, 3], [2, 5], [4, 2]])
+    goals = np.asarray([[20, 12], [21, 11], [19, 13]])
+    stages = pb.default_stages(8)
+    assert all(st[0].scan_dtype == "bfloat16" for st in stages)
+    jo = jbatch.plan_batch_e2e(
+        jshapes.make_shape("Circle"), jnp.asarray(feas), jnp.asarray(occ),
+        jnp.asarray(starts, jnp.int32), jnp.asarray(goals, jnp.int32),
+        JPlannerConfig(mem_size=8), jbatch.default_stages(8), N, N_OBS, 1.0,
+        jnp.asarray(xy_min))
+    feas_t, occ_t, _, _ = convert.front_end_maps_from_numpy(
+        feas, occ, None, None, device="cpu")
+    out = pb.plan_batch_e2e(
+        shapes.make_shape("Circle"), feas_t, occ_t, starts, goals,
+        PlannerConfig(mem_size=8), stages, N, N_OBS, 1.0, xy_min,
+        device="cpu", dtype=torch.float64)
+    _compare(jo, out)
+    np.testing.assert_allclose(out.cost.numpy(), np.asarray(jo.cost),
+                               rtol=1e-9)
+    np.testing.assert_allclose(out.cert_min.numpy(), np.asarray(jo.cert_min),
+                               rtol=0, atol=1e-9)
