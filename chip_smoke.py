@@ -10,14 +10,19 @@ Phases, one line each (any failure raises and the exit code is not 0):
   3. kernel vs plain: the coarse-scan kernel against its plain PyTorch
      version on the card, on the parity cases of the JAX package's
      tests/test_pallas_svsdf.py for every shape body (the 17 analytic
-     shapes and Polygon), in float32 and in the bfloat16 form, and the
+     shapes, Polygon and the grid body of the two mesh robots of phase
+     14, the grid body also on points in the grid's edge cells, where
+     the bfloat16 clip reaches the last cell, and past the grid), in
+     float32 and in the bfloat16 form, and the
      deformable form (a ScaledShape: each pose at its own scale) for
      sdHeart, sdRhombus and star in both scan types; then timed at the
      main and e2e paths' shapes, the single plan's (1x768x128,
      1x512x128), the grid query's (1x65536x256) and every body at
      512x64x96, and sdHeart's bfloat16, deformable and deformable
      bfloat16 forms at 512x64x96 and its bfloat16 form at the grid
-     shape: the kernel's device time (torch.profiler) and the wrapper's
+     shape, and the grid body (the sdHeart prism) in both forms at
+     512x64x96 and the grid shape: the kernel's device time
+     (torch.profiler) and the wrapper's
      and the plain version's time per call (CUDA events), printed in the
      kernel table's JSON line; the launch geometry of each timed shape
      and the bound's basis on lines of their own;
@@ -84,27 +89,51 @@ Phases, one line each (any failure raises and the exit code is not 0):
      solve at B=32 with default_stages(40) (the deformable bfloat16
      form);
  13. the LMBM back end: Planner(solver="lmbm") on synthetic_Circle (its
-     back end runs), gated as in phase 9.
+     back end runs), gated as in phase 9;
+ 14. mesh robots (models/mesh_sdf.py, the kernel's grid body): (a) the
+     sdHeart prism and the r = 1.0 cylinder written as .obj files
+     (bench.py write_prism_obj) into a temporary directory and read by
+     shape_from_mesh before phase 3 (grid size, bytes, host seconds);
+     (c) plan_batch_staged with the sdHeart prism at phase 4's setting,
+     default_stages(40) (bfloat16 scans) then float32, one warm-up and 3
+     timed runs (the float32 variant 1) closed by a host readback
+     (plans/s, median cost beside phase 4's analytic sdHeart), each
+     form's launch count > 0,
+     then the B=32 solve with the kernel and with the plain scan on the
+     card (median cost within 1e-3 relative); (d) Planner.plan with the
+     cylinder (config inputdata: its .obj) on synthetic_Circle's map at
+     scripts/run_scenarios.py's SVSDF settings, gated as in phase 9,
+     beside phase 9's analytic Circle plan; (e) the grid query of phase
+     11 with the sdHeart prism (queries/s; the field within 1e-3 m of the
+     host's float64 plain run); (f) the 3-D swept volume of (d)'s plan:
+     the cylinder's volumetric grid (grid_sdf_3d, resolution 0.15,
+     margin 1.0), the swept field on the card (eps 0.25, 128 poses)
+     against the host's (within 1e-5 m), marching tetrahedra, a
+     watertight mesh, written to chiprun_out/.
 Every line carries elapsed_s, the seconds since the script started.
 Phase 3's parity cases cover every body, the ten of phase 10 included,
 each bit for bit, and time each body at 512x64x96 against its bound.
 The coarse-scan launches are counted over each path (phases 4, 6, 7, 9,
-each solve of 10, 11, 12 and 13) from 0, in all and by form, and after
+each solve of 10, 11, 12, 13 and each path of 14) from 0, in all and by
+form, and after
 each path the kernel is held bit for bit against its plain version, on
 seeded inputs (and seeded pose times for a deformable robot), at every
 shape, form and (B, M, K) that path launched it at. Then the kernel
-table as one JSON line (one entry a form), the nvidia-smi line, and as
-the last line {"ok": true, "device": {...}}.
+table as one JSON line (one entry a form, and one for each form of the
+grid body), the nvidia-smi line, and as the last line {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -142,12 +171,53 @@ OPS_PER_EVAL = {"Circle": 18, "sdHeart": 43, "sdArc": 32,
                 "sdHorseshoe": 46, "sdRoundedCross": 44,
                 "sdOrientedVesica": 40, "sdPie": 42, "sdPie2": 42}
 OPS_POLYGON = (27, 8 + 12)
+#: the grid body's (a mesh robot's) operations per evaluation, counted
+#: from csrc/coarse_scan.cu Grid::body: grid coordinates 4, clips 4,
+#: floors, indices and fractions 8, the corners' clamped indices and
+#: addresses 16 and their four 4-byte gathers 4, the weights 6, the
+#: bilinear sum 7, the overshoots 8, their squares and sum 7, the guarded
+#: root, the step and the sum 5 (69); with the pose transform 11 and the
+#: compare 1. OPS_GRID_BF16 of them are bfloat16 operations in the
+#: bfloat16 form (the function's own types, as the plain version runs
+#: them): the pose transform 11, coordinates 4, clips 4, floors and
+#: fractions 4, weights 6, overshoots 8, squares and sum 7, the guarded
+#: root and the step product 4. The rest are float32 or integer work at
+#: the float32 rate: the int conversions 4, the corners' indices,
+#: addresses and gathers 20, the products with the float32 field and
+#: their sum 7, the last sum 1 and the compare of float32 values 1
+OPS_GRID = 81
+OPS_GRID_BF16 = 48
+#: the pose transform's operations: a Polygon's bfloat16 form runs only
+#: these in bfloat16 (the plain version promotes its edges to float32)
+OPS_POSE = 11
+
+
+def is_mesh(shape) -> bool:
+    """Whether the kernel runs ``shape`` on its grid body."""
+    from svsdf_tpu_torch.ops import cuda_svsdf as cs
+    return cs.body_id(shape) == cs.GRID_BODY_ID
 
 
 def ops_per_eval(shape) -> int:
     if shape.name == "Polygon":
         return OPS_POLYGON[0] * len(shape.vertices) + OPS_POLYGON[1]
+    if is_mesh(shape):
+        return OPS_GRID
     return OPS_PER_EVAL[shape.name]
+
+
+def ops_by_type(shape, bf16: bool) -> tuple[int, int]:
+    """(bfloat16, float32) operations per evaluation of ``shape``'s scan
+    in the bfloat16 form if ``bf16``, else in float32: each counted at
+    the type the function computes it in."""
+    n = ops_per_eval(shape) + OPS_SCALED * int(shape.time_varying)
+    if not bf16:
+        return 0, n
+    if is_mesh(shape):
+        return OPS_GRID_BF16, n - OPS_GRID_BF16
+    if shape.name == "Polygon":
+        return OPS_POSE, n - OPS_POSE
+    return n, 0
 
 
 #: (B, M, K) of the main path's coarse scans, timed in phase 3: the fast
@@ -182,6 +252,12 @@ RUN_SCENARIOS_SVS = dict(coarse_n=128, refine_rounds=2, gsip_iters=6,
 #: lo * recorded < cost < hi * recorded
 COST_GATE = (0.3, 1.5)
 KERNEL_NAME = "coarse_scan_kernel"
+#: the mesh robots of phase 14: the analytic body whose zero contour is
+#: extruded into a prism .obj, and the half-width of the contour's grid
+MESH_ROBOTS = {"heart_prism": ("sdHeart", 6.0), "cylinder": ("Circle", 2.0)}
+#: the export_swept_3d settings of scripts/run_scenarios.py: the robot's
+#: volumetric grid (resolution, margin), the sweep's step and poses
+SWEPT_3D = dict(resolution=0.15, margin=1.0, eps=0.25, n_t=128)
 
 
 #: the script's start, on the host's clock
@@ -343,15 +419,18 @@ def profile_solve(torch, run):
 def scan_bound_ms(shape, b, m, k, bf16=False):
     """Least time for the scan: bytes (points, poses (and a deformable
     robot's scales) read once; min, argmin (int64), two neighbours
-    written once) over HBM rate vs operations over the issued rate of the
-    scan type. Returns (ms, 'bytes' | 'operations')."""
+    written once; a mesh robot's grid read once) over HBM rate vs
+    operations over the issued rate of their type (``ops_by_type``).
+    Returns (ms, 'bytes' | 'operations')."""
     scaled = shape.time_varying
     nbytes = (b * m * 2 * 4 + b * (4 + int(scaled)) * k * 4
               + b * m * (3 * 4 + 8))
-    ops = b * m * k * (ops_per_eval(shape) + OPS_SCALED * int(scaled))
+    if is_mesh(shape):
+        nbytes += shape.grid.field.nbytes
+    n16, n32 = ops_by_type(shape, bf16)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / (ISSUED_BF16_OPS_PER_S if bf16
-                   else ISSUED_FP32_OPS_PER_S) * 1e3
+    t_ops = b * m * k * (n16 / ISSUED_BF16_OPS_PER_S
+                         + n32 / ISSUED_FP32_OPS_PER_S) * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -360,6 +439,40 @@ def form_of(cs, shape, scan_dtype):
     import torch
     return cs.form(cs.scan_type(scan_dtype) == torch.bfloat16,
                    shape.time_varying)
+
+
+def entry_of(cs, shape, scan_dtype):
+    """The kernel table's entry a launch counts under: its form, or the
+    grid body's entry of its form for a mesh robot."""
+    fm = form_of(cs, shape, scan_dtype)
+    return f"grid_{fm}" if is_mesh(shape) else fm
+
+
+def grid_edge_inputs(torch, shape, b, m, k, seed):
+    """Inputs that reach a mesh robot's grid edges: a fifth of the
+    body-frame points in the last cells of x, a fifth of y (where the
+    bfloat16 clip reaches n - 1 and the corner past it is read clamped),
+    a fifth in the first cells, a fifth up to 4 m past the grid, the rest
+    inside; poses near the identity."""
+    import numpy as np
+    g = shape.grid
+    rng = np.random.default_rng(seed)
+    lo = np.asarray([g.x0, g.y0])
+    hi = lo + g.step * (np.asarray([g.nx, g.ny]) - 1)
+    q = rng.uniform(lo, hi, (b, m, 2))
+    band = lambda n: rng.uniform(0.0, 2.5 * g.step, (b, n))
+    n5 = m // 5
+    q[:, :n5, 0] = hi[0] - band(n5)
+    q[:, n5:2 * n5, 1] = hi[1] - band(n5)
+    q[:, 2 * n5:3 * n5, 0] = lo[0] + band(n5)
+    q[:, 3 * n5:4 * n5] = rng.uniform(lo - 4, hi + 4, (b, n5, 2))
+    c, s = math.cos(shape.yaw0), math.sin(shape.yaw0)
+    pts = np.stack([c * q[..., 0] - s * q[..., 1] + shape.tx,
+                    s * q[..., 0] + c * q[..., 1] + shape.ty], -1)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device="cuda")
+    yaw = f32(rng.uniform(-0.01, 0.01, (b, k)))
+    return (f32(pts), f32(rng.uniform(-0.05, 0.05, (b, k, 2))),
+            torch.cos(yaw), torch.sin(yaw))
 
 
 class ShapeLog:
@@ -407,8 +520,8 @@ class ShapeLog:
                                   scan_inputs(torch, b, m, k, seed + i), 1e-5,
                                   scan_dtype, ts)
             worst = max(worst, err)
-            ShapeLog.worst[key[5]] = max(ShapeLog.worst.get(key[5], 0.0),
-                                         err)
+            entry = entry_of(self.cs, shape, scan_dtype)
+            ShapeLog.worst[entry] = max(ShapeLog.worst.get(entry, 0.0), err)
         say("path_scans", path=path, cases=len(self.seen),
             shapes=self.summary(), max_abs_err=worst, bitwise=True)
         return worst
@@ -455,8 +568,8 @@ def main() -> int:
         raise RuntimeError("chip_smoke.py needs a CUDA card")
     from svsdf_tpu_torch import convert
     from svsdf_tpu_torch.bench import (BENCH_MEM_SIZE, e2e_draws, e2e_setup,
-                                       grid_setup, problem)
-    from svsdf_tpu_torch.models import shapes
+                                       grid_setup, problem, write_prism_obj)
+    from svsdf_tpu_torch.models import mesh_sdf, shapes
     from svsdf_tpu_torch.ops import cuda_svsdf as cs
     from svsdf_tpu_torch.ops import kernels as kops
     from svsdf_tpu_torch.ops.svsdf import SVSDFConfig, svsdf_grid
@@ -468,6 +581,7 @@ def main() -> int:
     from svsdf_tpu_torch.utils import fixtures, mapgen
     from svsdf_tpu_torch.utils import trajectory as trj
     from svsdf_tpu_torch.utils.config import PlannerConfig
+    from svsdf_tpu_torch.viz import swept_surface as sw
 
     card = smi_line()
     kind = torch.cuda.get_device_name(0)
@@ -482,6 +596,21 @@ def main() -> int:
         library=os.path.relpath(lib, ROOT),
         ptxas=[ln.strip() for ln in log.splitlines()
                if "registers" in ln or "spill" in ln])
+
+    # -- 14 (a). the mesh robots, which phase 3 checks too -------------
+    mesh_dir = tempfile.TemporaryDirectory()
+    mesh_obj, mesh = {}, {}
+    for key, (body, extent) in MESH_ROBOTS.items():
+        t0 = time.perf_counter()
+        mesh_obj[key] = write_prism_obj(
+            body, os.path.join(mesh_dir.name, f"{key}.obj"), extent=extent)
+        t1 = time.perf_counter()
+        mesh[key] = mesh_sdf.shape_from_mesh(mesh_obj[key])
+        g = mesh[key].grid
+        say("mesh_robot", robot=mesh[key].name, body=body,
+            grid=f"{g.nx}x{g.ny}", grid_bytes=g.field.nbytes,
+            step=g.step, obj_s=t1 - t0,
+            shape_from_mesh_s=time.perf_counter() - t1)
 
     # -- 3. kernel vs plain on the card --------------------------------
     cases = []
@@ -502,6 +631,12 @@ def main() -> int:
             shape = shapes.make_shape(name, poly_params=pp)
             for m in (7, 1024, 2000):
                 cases.append((shape, 1, m, 37, 1e-5))
+    # the grid body: both mesh robots under both pre-transforms
+    for key, robot in mesh.items():
+        for pp in ((0.0, 0.0, 0.0), (0.3, -0.2, 25.0)):
+            shape = mesh_sdf.mesh_shape(key, robot.grid, pp)
+            for m in (7, 1024, 2000):
+                cases.append((shape, 1, m, 37, 1e-5))
     # the bfloat16 form on every case above; the deformable forms of the
     # deformable scenarios' robots in both scan types on the same inputs
     cases = ([c + (None,) for c in cases]
@@ -520,13 +655,30 @@ def main() -> int:
                                     scan_inputs(torch, b, m, k, seed=i), atol,
                                     dt, pose_times(torch, b, k, seed=i))
         fm = form_of(cs, shape, dt)
-        ShapeLog.worst[fm] = max(ShapeLog.worst.get(fm, 0.0), err)
+        entry = entry_of(cs, shape, dt)
+        ShapeLog.worst[entry] = max(ShapeLog.worst.get(entry, 0.0), err)
         row = per_body.setdefault((shape.name, fm), {
             "cases": [], "max_abs_err": 0.0, "bitwise": True})
         row["cases"].append(f"{b}x{m}x{k} pre={shape.tx},{shape.ty},"
                             f"{shape.yaw0:.4f}")
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row["bitwise"] = row["bitwise"] and bitwise
+    # the grid body on its edges: the bfloat16 clamp zone, past the grid
+    for i, (key, robot) in enumerate(mesh.items()):
+        for pp in ((0.0, 0.0, 0.0), (0.3, -0.2, 25.0)):
+            shape = mesh_sdf.mesh_shape(key, robot.grid, pp)
+            for dt in (None, "bfloat16"):
+                for b, m, k in ((2, 600, 37), (1, 2000, 96)):
+                    err, bitwise = compare_scan(
+                        torch, cs, shape, grid_edge_inputs(
+                            torch, shape, b, m, k, seed=90 + i), 1e-5, dt)
+                    entry = entry_of(cs, shape, dt)
+                    ShapeLog.worst[entry] = max(
+                        ShapeLog.worst.get(entry, 0.0), err)
+                    row = per_body[(shape.name, form_of(cs, shape, dt))]
+                    row["cases"].append(f"edges {b}x{m}x{k} pre={shape.tx},"
+                                        f"{shape.ty},{shape.yaw0:.4f}")
+                    row["max_abs_err"] = max(row["max_abs_err"], err)
     for (name, fm), row in per_body.items():     # one line per body, form
         say("scan", shape=name, form=fm, **row)
     timings = []
@@ -550,6 +702,17 @@ def main() -> int:
         row = time_scan(torch, cs, shape, inp, dt, pose_times(torch, b, k, 97),
                         scan_bound_ms(shape, b, m, k, bf16=dt is not None))
         form_times.setdefault(fm, []).append(dict(form=fm, **row))
+    # the grid body (the sdHeart prism) in both forms at the main path's
+    # shape and the grid query's
+    heart_mesh = mesh["heart_prism"]
+    for dt in (None, "bfloat16"):
+        for b, m, k in (BODY_TIME_SHAPE, GRID_SHAPE):
+            inp = scan_inputs(torch, b, m, k, seed=96)
+            row = time_scan(torch, cs, heart_mesh, inp, dt, None,
+                            scan_bound_ms(heart_mesh, b, m, k,
+                                          bf16=dt is not None))
+            fm = "grid_" + form_of(cs, heart_mesh, dt)
+            form_times.setdefault(fm, []).append(dict(form=fm, **row))
     # every body at one shape: kernel (profiler), plain (events), bound
     body_times = []
     inp = scan_inputs(torch, *BODY_TIME_SHAPE, seed=98)
@@ -578,7 +741,11 @@ def main() -> int:
         scaled_extra_ops_per_eval=OPS_SCALED,
         hbm_bytes_per_s=HBM_BYTES_PER_S,
         ops_per_eval={name: ops_per_eval(shapes.make_shape(name))
-                      for name in all_bodies})
+                      for name in all_bodies},
+        grid_body_ops_per_eval=OPS_GRID,
+        grid_body_bf16_ops_per_eval=OPS_GRID_BF16,
+        grid_bytes={r.name: r.grid.field.nbytes for r in mesh.values()},
+        polygon_bf16_ops_per_eval=OPS_POSE)
 
     # -- 4. main path --------------------------------------------------
     n, m_obs, batch, iters = 8, 64, 512, 40
@@ -906,6 +1073,7 @@ def main() -> int:
             "final_cost")}, cost_gate=[lo * rec["final_cost"],
                                        hi * rec["final_cost"]])
 
+    first_plans = {}
     cs.reset_launches()
     with ShapeLog(cs) as plan_log:
         for name in fixtures.list_synthetic_scenarios():
@@ -923,6 +1091,7 @@ def main() -> int:
             for _ in range(2 if name == "Circle" else 1):
                 runs.append(gated_plan(planner, sc, rec))
             res, first_s, goal_err = runs[0]
+            first_plans[sc.name] = res
             warm = {}
             if name == "Circle":        # the scenario that runs a back end
                 profiled = (planner, sc)
@@ -975,12 +1144,12 @@ def main() -> int:
         -0.1, 0.1, (grid_batches, 2, len(gq.xs))).astype(np.float32),
         device="cuda")
 
-    def grid_run(ds):
-        """svsdf_grid on each batch's perturbed axes, summed on the card,
-        closed by one host readback."""
+    def grid_run(ds, shape=gq.shape):
+        """svsdf_grid of ``shape`` on each batch's perturbed axes, summed
+        on the card, closed by one host readback."""
         acc = torch.zeros((), device="cuda")
         for d in ds:
-            acc = acc + svsdf_grid(gq.shape, gq.traj, gq.xs + d[0],
+            acc = acc + svsdf_grid(shape, gq.traj, gq.xs + d[0],
                                    gq.ys + d[1], svs_grid).sum()
         return float(acc)
 
@@ -1077,6 +1246,163 @@ def main() -> int:
         kernel_launches=lmbm_launches, **recorded_row(rec))
     lmbm_log.check(torch, "lmbm planner", seed=8000)
 
+    # -- 14. mesh robots -----------------------------------------------
+    # (c) the main path with the sdHeart prism, bfloat16 then float32
+    def mesh_main_path(stages_, form, seed, runs):
+        """Phase 4's solve with the mesh robot: one warm-up and ``runs``
+        timed runs, counted from 0, then the kernel held at every shape
+        the path launched. Returns (the path's launches of ``form``, its
+        ShapeLog, its summary)."""
+        cs.reset_launches()
+        with ShapeLog(cs) as log:
+            float(pb.plan_batch_staged(heart_mesh, x0_t, prob, cfg, stages_,
+                                       n).cost.sum())
+            rng = np.random.default_rng(1)
+            walls, costs = [], []
+            for _ in range(runs):
+                xx = x0_t + torch.as_tensor(
+                    rng.uniform(-1e-3, 1e-3, x0.shape).astype(np.float32),
+                    device="cuda")
+                t0 = time.perf_counter()
+                out = pb.plan_batch_staged(heart_mesh, xx, prob, cfg,
+                                           stages_, n)
+                float(out.cost.sum())
+                walls.append(time.perf_counter() - t0)
+                costs.append(float(out.cost.median()))
+        total = cs.coarse_scan.launches
+        by_form = dict(cs.coarse_scan.form_launches)
+        if by_form[form] <= 0:
+            raise AssertionError(f"the mesh main path ({form} scans) "
+                                 "launched no coarse-scan kernel of that form")
+        if not (torch.isfinite(out.cost).all()
+                and torch.isfinite(out.opt_x).all()):
+            raise AssertionError("mesh main path output not finite")
+        log.check(torch, f"mesh main {form}", seed=seed)
+        wall = statistics.median(walls)
+        row = dict(scan=form, B=batch, n=n, M=m_obs, iters=iters,
+                   wall_s=walls, median_wall_s=wall,
+                   plans_per_s=batch / wall,
+                   median_final_cost=statistics.median(costs),
+                   kernel_launches=total, form_launches=by_form)
+        return by_form[form], log, row
+
+    mesh_bf16_launches, mesh_bf16_log, row = mesh_main_path(
+        pb.default_stages(iters), "bfloat16", seed=9100, runs=3)
+    say("mesh_main_path", robot=heart_mesh.name,
+        analytic_sdHeart_median_cost=bf16_cost, **row)
+    # the float32 variant with one timed run: the script's time budget
+    mesh_launches, mesh_log, row = mesh_main_path(stages, "float32",
+                                                  seed=9000, runs=1)
+    say("mesh_main_path", robot=heart_mesh.name,
+        analytic_sdHeart_median_cost=main_cost, **row)
+    with_kernel = pb.plan_batch_staged(heart_mesh, x_s, prob_s, cfg, stages,
+                                       n)
+    with mock.patch.object(cs, "coarse_scan", cs.coarse_scan_reference):
+        with_plain = pb.plan_batch_staged(heart_mesh, x_s, prob_s, cfg,
+                                          stages, n)
+    mk, mp = float(with_kernel.cost.median()), float(with_plain.cost.median())
+    rel = abs(mk - mp) / abs(mp)
+    if not rel <= 1e-3:
+        raise AssertionError(f"mesh kernel vs plain scan solve: rel {rel}")
+    say("mesh_checks", B=small, median_cost_kernel=mk, median_cost_plain=mp,
+        rel_diff=rel, exact=mk == mp)
+
+    # (d) Planner.plan with the cylinder on synthetic_Circle's map
+    sc = fixtures.synthetic_scenario("Circle")
+    cyl_cfg = dataclasses.replace(sc.config, inputdata=mesh_obj["cylinder"])
+    cs.reset_launches()
+    with ShapeLog(cs) as mesh_plan_log:
+        planner, build_s = timed(torch, lambda: Planner(
+            cyl_cfg, sc.map_points, svs_cfg=svs_rs))
+        if planner.shape.name != mesh["cylinder"].name:
+            raise AssertionError(f"the planner's robot is {planner.shape.name}")
+        rec = recorded[sc.name]
+        res, plan_s, goal_err = gated_plan(planner, sc, rec)
+    mesh_plan_launches = cs.coarse_scan.launches
+    if mesh_plan_launches <= 0:
+        raise AssertionError("the mesh plan launched no coarse-scan kernel")
+    circle = first_plans[sc.name]
+    say("mesh_planner", scenario=sc.name, robot=planner.shape.name,
+        build_s=build_s, plan_s=plan_s, timings=stage_s(res),
+        astar_len=len(res.astar_path), success=res.success,
+        certified=res.certified, min_cert_sdf=res.min_cert_sdf,
+        mid_cost=res.mid_cost, final_cost=res.final_cost,
+        goal_err_m=goal_err, kernel_launches=mesh_plan_launches,
+        form_launches=cs.coarse_scan.form_launches,
+        analytic_circle=dict(final_cost=circle.final_cost,
+                             min_cert_sdf=circle.min_cert_sdf),
+        **recorded_row(rec))
+    mesh_plan_log.check(torch, "mesh planner", seed=9200)
+
+    # (e) the grid query with the sdHeart prism
+    cs.reset_launches()
+    with ShapeLog(cs) as mesh_grid_log:
+        grid_run(shifts, heart_mesh)
+        walls = []
+        for i in range(3):
+            walls.append(timed(torch, lambda: grid_run(
+                shifts + 1e-5 * (i + 1), heart_mesh))[1])
+    mesh_grid_launches = cs.coarse_scan.launches
+    if mesh_grid_launches <= 0:
+        raise AssertionError("the mesh grid query launched no coarse-scan "
+                             "kernel")
+    mesh_grid_log.check(torch, "mesh grid", seed=9300)
+    field = svsdf_grid(heart_mesh, gq.traj, gq.xs, gq.ys, svs_grid)
+    t0 = time.perf_counter()
+    field_h = svsdf_grid(heart_mesh, gh.traj, gh.xs, gh.ys, svs_grid)
+    host_s = time.perf_counter() - t0
+    grid_err = float((field.double().cpu() - field_h).abs().max())
+    if not (field.shape == (1, len(gq.xs), len(gq.ys))
+            and bool(torch.isfinite(field).all()) and grid_err <= 1e-3):
+        raise AssertionError(f"mesh grid query field: shape "
+                             f"{tuple(field.shape)}, max abs err vs host "
+                             f"float64 {grid_err}")
+    wall = statistics.median(walls)
+    say("mesh_grid_query", robot=heart_mesh.name, points=n_grid,
+        batches_per_run=grid_batches, wall_s=walls,
+        queries_per_s=grid_batches * n_grid / wall,
+        analytic_sdHeart_queries_per_s=grid_batches * n_grid / grid_wall,
+        kernel_launches=mesh_grid_launches,
+        max_abs_err_vs_host_f64=grid_err, host_f64_s=host_s)
+
+    # (f) the 3-D swept volume of (d)'s plan (export_swept_3d's settings)
+    t0 = time.perf_counter()
+    V, F = mesh_sdf.load_obj(mesh_obj["cylinder"])
+    g3 = mesh_sdf.grid_sdf_3d(V, F, resolution=SWEPT_3D["resolution"],
+                              margin=SWEPT_3D["margin"])
+    grid3_s = time.perf_counter() - t0
+    traj = res.traj
+    total = float(traj.total_duration[0])
+    xy = trj.pos(traj, torch.linspace(0.0, total, 64, device="cuda")[None]
+                 .to(traj.coeffs.dtype))[0, :, :2].cpu().numpy()
+    r = float(np.abs(V[:, :2]).max()) + 0.5
+    bounds = (xy[:, 0].min() - r, xy[:, 0].max() + r, xy[:, 1].min() - r,
+              xy[:, 1].max() + r, float(V[:, 2].min()) - 0.3,
+              float(V[:, 2].max()) + 0.3)
+    sweep = lambda tr: sw.swept_field_3d(g3.sdf_xyz, tr, bounds,
+                                         SWEPT_3D["eps"], SWEPT_3D["n_t"])
+    (xs3, ys3, zs3, field3), card_s = timed(torch, lambda: sweep(traj))
+    t0 = time.perf_counter()
+    field3_h = sweep(trj.Trajectory(traj.coeffs.cpu(),
+                                    traj.durations.cpu()))[3]
+    host3_s = time.perf_counter() - t0
+    err3 = float(np.abs(field3 - field3_h).max())
+    Vs, Fs = sw.marching_tetrahedra(xs3, ys3, zs3, field3)
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    obj_path = os.path.join(out_dir, "swept_mesh_cylinder.obj")
+    sw.write_trimesh_obj(Vs, Fs, obj_path)
+    if not (np.isfinite(field3).all() and err3 <= 1e-5
+            and sw.is_watertight(Fs)):
+        raise AssertionError(f"3-D swept volume: card vs host {err3}, "
+                             f"watertight {sw.is_watertight(Fs)}")
+    say("mesh_swept_3d", robot=mesh["cylinder"].name,
+        grid3=f"{g3.nx}x{g3.ny}x{g3.nz}", grid3_s=grid3_s,
+        field=list(field3.shape), card_s=card_s, host_s=host3_s,
+        max_abs_err_vs_host=err3, vertices=len(Vs), triangles=len(Fs),
+        watertight=True, obj=os.path.relpath(obj_path, ROOT))
+    mesh_dir.cleanup()
+
     def kernel_entry(form, launches_, t, **extra):
         """The kernel table's entry of one form, timed at ``t``."""
         return {"name": "svsdf_coarse_scan" + (
@@ -1137,6 +1463,23 @@ def main() -> int:
             form_times["scaled_bfloat16"][0], counterpart_of=xla_scan,
             shapes_ran={"deformable_staged":
                         deform_staged_log.summary("scaled_bfloat16")}),
+        # the grid body: a mesh robot's scans, counted over phase 14's paths
+        kernel_entry(
+            "grid_float32", mesh_launches, form_times["grid_float32"][0],
+            counterpart_of=xla_scan,
+            launches_by_path={"mesh_main": mesh_launches,
+                              "mesh_planner": mesh_plan_launches,
+                              "mesh_grid": mesh_grid_launches},
+            shapes_ran={"mesh_main": mesh_log.summary("float32"),
+                        "mesh_planner": mesh_plan_log.summary(),
+                        "mesh_grid": mesh_grid_log.summary()},
+            grid_scan=form_times["grid_float32"][1]),
+        kernel_entry(
+            "grid_bfloat16", mesh_bf16_launches,
+            form_times["grid_bfloat16"][0], counterpart_of=xla_scan,
+            launches_by_path={"mesh_main": mesh_bf16_launches},
+            shapes_ran={"mesh_main": mesh_bf16_log.summary("bfloat16")},
+            grid_scan=form_times["grid_bfloat16"][1]),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

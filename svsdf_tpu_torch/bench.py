@@ -1,7 +1,9 @@
 """The port's problem sets: the main path's (own copy of
 bench.py::_problem), the end-to-end cell's map (own copy of the set-up
-of bench.py::bench_e2e) and the grid query's trajectory and axes (own
-copy of the set-up of bench.py::bench_grid_queries).
+of bench.py::bench_e2e), the grid query's trajectory and axes (own
+copy of the set-up of bench.py::bench_grid_queries), and mesh robots to
+drive (``write_prism_obj``: the reference's robot .obj files are not in
+the repository).
 
 ``problem`` builds B independent back-end problems from numpy seeds,
 exactly as the repo's ``bench.py`` does: goals in [6, 10] x [-2, 2],
@@ -122,3 +124,43 @@ def grid_setup(grid: int = 256, device=None,
     traj = minco.solve(t(np.full((1, n), 1.5)), t(head), t(tail), t(wps))
     return GridSetup(shapes.make_shape("sdHeart"), traj,
                      t(np.linspace(-4, 14, grid)), t(np.linspace(-8, 8, grid)))
+
+
+#: the prism's contour grid step and half-height (m)
+PRISM_STEP = 0.05
+PRISM_HALF_HEIGHT = 0.5
+
+
+def write_prism_obj(name: str, path: str, extent: float = 6.0) -> str:
+    """Write a closed prism .obj of the analytic body ``name`` to ``path``:
+    the body's zero contour by marching squares (viz/swept_surface.py) on
+    a PRISM_STEP grid over [-extent, extent]^2, extruded over z in
+    [-PRISM_HALF_HEIGHT, PRISM_HALF_HEIGHT]. Each contour segment gives a side quad (two
+    outward triangles) and one triangle of each cap, fanned from the
+    contour's centroid (the bodies driven, sdHeart and Circle, are
+    star-shaped about it). A mesh robot for benches and checks: a .obj the
+    mesh-SDF path reads like the reference's robots."""
+    from svsdf_tpu_torch.models import shapes
+    from svsdf_tpu_torch.viz.swept_surface import marching_squares
+
+    ax = np.arange(-extent, extent + PRISM_STEP, PRISM_STEP)
+    gx, gy = np.meshgrid(ax, ax, indexing="ij")
+    sdf = shapes.make_shape(name).sdf_xy(torch.as_tensor(gx),
+                                         torch.as_tensor(gy)).numpy()
+    segs = np.asarray(marching_squares(ax, ax, sdf))         # (S, 2, 2)
+    c = segs.reshape(-1, 2).mean(axis=0)
+    a, b = segs[:, 0] - c, segs[:, 1] - c
+    ccw = a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0] > 0.0
+    segs = np.where(ccw[:, None, None], segs, segs[:, ::-1])
+    h = PRISM_HALF_HEIGHT
+    vertex = lambda x, y, z: f"v {float(x)!r} {float(y)!r} {z!r}\n"
+    with open(path, "w") as f:
+        f.write(vertex(*c, -h) + vertex(*c, h))
+        for (ax_, ay_), (bx_, by_) in segs:
+            f.write(vertex(ax_, ay_, -h) + vertex(bx_, by_, -h)
+                    + vertex(bx_, by_, h) + vertex(ax_, ay_, h))
+        for i in range(len(segs)):
+            a0, b0, b1, a1 = (3 + 4 * i + j for j in range(4))
+            f.write(f"f {a0} {b0} {b1}\nf {a0} {b1} {a1}\n"   # side
+                    f"f 2 {a1} {b1}\nf 1 {b0} {a0}\n")         # caps
+    return path

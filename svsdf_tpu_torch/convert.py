@@ -93,6 +93,21 @@ def scaled_shape_from_fields(name: str, scale_fn, tx: float = 0.0,
                                yaw0=float(yaw0))
 
 
+def mesh_shape_from_fields(values, x0: float, y0: float, step: float,
+                           nx: int, ny: int, tx: float = 0.0,
+                           ty: float = 0.0, yaw0: float = 0.0,
+                           name: str = "mesh:robot") -> shapes.Shape2D:
+    """A mesh robot from another package's grid fields (a GridSDF2D's
+    values, origin, step and size, the robot's pre-transform tx, ty and
+    yaw0 in radians, and its name "mesh:<stem>"): the grid is the mesh
+    robot's "weights". The values are kept as float32, as the JAX package
+    keeps them."""
+    from svsdf_tpu_torch.models.mesh_sdf import GridSDF2D
+    grid = GridSDF2D(np.asarray(values, np.float32), x0, y0, step, nx, ny)
+    return shapes.Shape2D(name=name, body_sdf=grid.sdf_xy, tx=float(tx),
+                          ty=float(ty), yaw0=float(yaw0), grid=grid)
+
+
 def gridmap_from_numpy(resolution: float, xyz_min, occ) -> GridMap:
     """A GridMap from another package's grid fields (resolution, (3,)
     origin, (X, Y, Z) occupancy)."""

@@ -49,6 +49,9 @@ def _as_t(v, ref):
 #: dtypes in which a Python constant is rounded before it meets a plane
 _LOW = (torch.bfloat16, torch.float16)
 
+#: the name prefix of a mesh robot, "mesh:<obj stem>" (models/mesh_sdf.py)
+MESH_PREFIX = "mesh:"
+
 
 def _k(v, ref):
     """The Python constant ``v`` as it meets the plane ``ref``: rounded to
@@ -355,6 +358,10 @@ class Shape2D:
     #: vertex list of a Polygon shape (None for analytic shapes)
     vertices: Optional[tuple] = dataclasses.field(default=None,
                                                   repr=False)
+    #: the SDF grid of a mesh robot (models/mesh_sdf.py GridSDF2D, whose
+    #: ``sdf_xy`` is body_sdf), None for the other bodies
+    grid: Optional[object] = dataclasses.field(default=None, repr=False,
+                                               compare=False)
     time_varying: bool = dataclasses.field(default=False, repr=False)
 
     def _pre(self, px, py):
@@ -505,12 +512,13 @@ def shape_from_objpath(objpath: str,
                        ) -> Shape2D:
     """Select the shape from the config ``inputdata`` obj path
     (initShapeByString, sw_manager.hpp:350-373): a known analytic stem
-    wins; a missing file falls back to the thin-rectangle Polygon. An
-    existing ``.obj`` of an unknown name needs the mesh SDF, which is
-    not ported yet, and raises."""
+    wins; an existing ``.obj`` of another name is a mesh robot
+    (models/mesh_sdf.py ``shape_from_mesh``, the reference's BasicShape
+    mesh SDF, Shape.hpp:332-340); a missing file falls back to the
+    thin-rectangle Polygon."""
     stem = objpath.rsplit("/", 1)[-1]
     stem = stem[:-4] if stem.endswith(".obj") else stem
     if stem not in _REGISTRY and os.path.isfile(objpath):
-        raise NotImplementedError(
-            f"mesh-SDF shapes are not ported yet: {objpath!r}")
+        from svsdf_tpu_torch.models.mesh_sdf import shape_from_mesh
+        return shape_from_mesh(objpath, poly_params=poly_params)
     return make_shape(stem, poly_params=poly_params)

@@ -90,3 +90,14 @@ class PlannerConfig:
     def shape_name(self) -> str:
         stem = self.inputdata.rsplit("/", 1)[-1]
         return stem[:-4] if stem.endswith(".obj") else stem
+
+    @classmethod
+    def from_yaml(cls, path: str) -> "PlannerConfig":
+        """The config of one of the reference's per-shape YAML files
+        (src/plan_manager/config/*.yaml); keys that are not fields are
+        ignored."""
+        import yaml
+        with open(path) as f:
+            raw = yaml.safe_load(f)
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in raw.items() if k in known})

@@ -1,23 +1,41 @@
-"""Synthetic and deformable scenario fixtures (own copy of those parts
-of svsdf_tpu/utils/fixtures.py).
+"""Scenario fixtures (own copy of svsdf_tpu/utils/fixtures.py).
+
+The reference's regression suite is its 13 shape scenarios, each a
+(config/<shape>.yaml, pcds/map_<shape>.pcd, pcds/trajectory_<shape>.txt
+with "Start:" / "End:" lines) triple under src/plan_manager of the
+reference checkout (the loader LoadStartEnd,
+src/plan_manager/src/plan_manager.cpp:359-422); ``mesh_scenario`` plans
+one of them with the robot loaded from the reference's own .obj through
+the mesh-SDF path. The checkout is read from ``SVSDF_REFERENCE_ROOT``,
+by default ``reference/`` at the root of this repository; it is not in
+the repository, so those loaders run only where it is provided.
 
 For the analytic shapes the reference ships no demo fixtures for, each
-scenario is a gate map (one two-voxel-thick wall, one gap) sized to the
-shape, so every shape family can be driven end to end without the
-reference checkout. The deformable scenarios thread a breathing robot
-(models/shapes.py ScaledShape) through a gate sized for its largest
-scale. The loaders of the reference's 13 fixtures (PCD maps, YAML
-configs) and its mesh robots are not ported yet.
+synthetic scenario is a gate map (one two-voxel-thick wall, one gap)
+sized to the shape, so every shape family can be driven end to end
+without the reference checkout. The deformable scenarios thread a
+breathing robot (models/shapes.py ScaledShape) through a gate sized for
+its largest scale.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import re
+from typing import Tuple
 
 import numpy as np
 
 from svsdf_tpu_torch.models import shapes
 from svsdf_tpu_torch.utils.config import PlannerConfig
+from svsdf_tpu_torch.utils.pcd import read_pcd
+
+REFERENCE_ROOT = os.environ.get(
+    "SVSDF_REFERENCE_ROOT",
+    os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), "reference"))
+_PM = "src/plan_manager"
 
 
 @dataclasses.dataclass
@@ -29,6 +47,67 @@ class Scenario:
     goal: np.ndarray           # (3,)
     #: prebuilt robot shape overriding config.inputdata
     shape: object = None
+
+
+def list_scenarios(root: str = REFERENCE_ROOT):
+    """The reference scenarios under ``root``: each config YAML with its
+    map PCD."""
+    cfg_dir = os.path.join(root, _PM, "config")
+    names = []
+    for f in sorted(os.listdir(cfg_dir)):
+        if f.endswith(".yaml"):
+            name = f[:-5]
+            if os.path.exists(os.path.join(root, _PM, "pcds",
+                                           f"map_{name}.pcd")):
+                names.append(name)
+    return names
+
+
+def load_start_end(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """Parse the "Start: x y z" / "End: x y z" fixture lines
+    (plan_manager.cpp:396-421)."""
+    start = np.zeros(3)
+    end = np.zeros(3)
+    with open(path) as f:
+        for line in f:
+            m = re.match(r"\s*Start:\s+([-\d.eE]+)\s+([-\d.eE]+)"
+                         r"\s+([-\d.eE]+)", line)
+            if m:
+                start = np.asarray([float(g) for g in m.groups()])
+            m = re.match(r"\s*End:\s+([-\d.eE]+)\s+([-\d.eE]+)"
+                         r"\s+([-\d.eE]+)", line)
+            if m:
+                end = np.asarray([float(g) for g in m.groups()])
+    return start, end
+
+
+def load_scenario(name: str, root: str = REFERENCE_ROOT) -> Scenario:
+    """One reference scenario: its YAML config, PCD map and start / goal."""
+    cfg = PlannerConfig.from_yaml(
+        os.path.join(root, _PM, "config", f"{name}.yaml"))
+    pts = read_pcd(os.path.join(root, _PM, "pcds", f"map_{name}.pcd"))
+    start, goal = load_start_end(
+        os.path.join(root, _PM, "pcds", f"trajectory_{name}.txt"))
+    return Scenario(name=name, config=cfg, map_points=pts,
+                    start=start, goal=goal)
+
+
+def mesh_scenario(ref_name: str, root: str = REFERENCE_ROOT,
+                  resolution: float = 0.05) -> Scenario:
+    """A reference scenario planned with the robot loaded from the
+    reference's own .obj (src/plan_manager/shapes/) through the mesh-SDF
+    path (models/mesh_sdf.py) instead of the analytic SDF: the BasicShape
+    mesh route (Shape.hpp:284-340) on the reference's robot geometry."""
+    from svsdf_tpu_torch.models.mesh_sdf import shape_from_mesh
+
+    sc = load_scenario(ref_name, root=root)
+    objpath = os.path.join(root, _PM, "shapes", f"{ref_name}.obj")
+    if not os.path.isfile(objpath):
+        raise FileNotFoundError(objpath)
+    sc.name = f"mesh_{ref_name}"
+    sc.shape = shape_from_mesh(objpath, resolution=resolution,
+                               poly_params=sc.config.poly_params)
+    return sc
 
 
 #: shape -> (max body radius [m], kernel_size, kernel_yaw_num)
@@ -122,15 +201,15 @@ def deformable_scenario(name: str = "deformable_star") -> Scenario:
                     goal=np.asarray([43.5, mid + 0.5, 0.0]), shape=shape)
 
 
-def load_any(name: str) -> Scenario:
+def load_any(name: str, root: str = REFERENCE_ROOT) -> Scenario:
     """A scenario by the repo's naming convention: ``synthetic_*`` (gate
-    maps), ``deformable_*`` (breathing robots). The reference's fixtures
-    and ``mesh_*`` need the reference maps and the mesh SDF, which are not
-    ported yet, and raise."""
+    maps), ``deformable_*`` (breathing robots), ``mesh_*`` (a reference
+    scenario with its mesh robot), anything else a reference scenario
+    (plan_manager.cpp:359-422)."""
     if name.startswith("synthetic_"):
         return synthetic_scenario(name.removeprefix("synthetic_"))
     if name.startswith("deformable_"):
         return deformable_scenario(name)
-    raise NotImplementedError(
-        f"scenario {name!r}: the reference fixtures and mesh robots are "
-        "not ported yet")
+    if name.startswith("mesh_"):
+        return mesh_scenario(name.removeprefix("mesh_"), root=root)
+    return load_scenario(name, root=root)

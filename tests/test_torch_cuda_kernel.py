@@ -9,7 +9,9 @@ package, so on a card whose installation has no JAX it runs alone:
 
 Beside the float32 form's parity cases, the card tests hold both
 packed bfloat16 forms on every body and lane count, ties, signed zeros,
-NaN and subnormals, and force three paths on the card (GSIP at K = 64,
+NaN and subnormals, the grid body of mesh robots in both forms (every
+lane count, the bfloat16 clamp zone, grids past 48 KB and past 227 KB, a
+wrong grid refused), and force three paths on the card (GSIP at K = 64,
 certify-refine re-solves in a replan, the retry ladder's fine-yaw
 rungs), holding every launch they make. The other tests hold the
 wrapper's argument checks, which run before anything touches the card.
@@ -22,8 +24,8 @@ import numpy as np
 import pytest
 import torch
 
-from svsdf_tpu_torch.bench import grid_setup
-from svsdf_tpu_torch.models import shapes
+from svsdf_tpu_torch.bench import grid_setup, write_prism_obj
+from svsdf_tpu_torch.models import mesh_sdf, shapes
 from svsdf_tpu_torch.ops import cuda_svsdf as cs
 from svsdf_tpu_torch.ops.svsdf import SVSDFConfig, svsdf_query
 from svsdf_tpu_torch.parallel import batch as pb
@@ -653,3 +655,162 @@ def test_planner_tight_gate_reaches_refine_and_fine_yaw_on_card():
     assert rungs[0]["refine_rounds"] >= 1
     assert res.success and not res.certified
     log.check()
+
+
+# -- the grid body: mesh robots (models/mesh_sdf.py GridSDF2D) ------------
+
+@pytest.fixture(scope="module")
+def mesh_robots(tmp_path_factory):
+    """The sdHeart prism (a 178 x 170 grid, 121 KB: past the 48 KB table)
+    under a pre-transform, and the r = 1.0 cylinder at resolution 0.01
+    (a 601 x 601 grid, 1.4 MB: past the 227 KB a block's shared memory
+    could hold)."""
+    d = tmp_path_factory.mktemp("mesh")
+    heart = mesh_sdf.shape_from_mesh(
+        write_prism_obj("sdHeart", str(d / "heart_prism.obj")),
+        poly_params=(0.3, -0.2, 25.0))
+    cyl = mesh_sdf.shape_from_mesh(
+        write_prism_obj("Circle", str(d / "cylinder.obj"), extent=2.0),
+        resolution=0.01)
+    assert heart.grid.field.nbytes > 48 * 1024
+    assert cyl.grid.field.nbytes > 227 * 1024
+    return {"heart": heart, "cylinder": cyl}
+
+
+def _edge_inputs(shape, b, m, k, seed, device):
+    """Points whose body-frame coordinates lie in the grid's last cells
+    (where the bfloat16 clip reaches n - 1 and the corner past it is read
+    clamped), by its first cells and past the grid; poses near the
+    identity (small shifts and turns) so the pre-transform alone moves
+    them."""
+    g = shape.grid
+    rng = np.random.default_rng(seed)
+    lo = np.asarray([g.x0, g.y0])
+    hi = lo + g.step * (np.asarray([g.nx, g.ny]) - 1)
+    q = rng.uniform(lo, hi, (b, m, 2))
+    band = lambda n: rng.uniform(0.0, 2.5 * g.step, (b, n))
+    n4 = m // 5
+    q[:, :n4, 0] = hi[0] - band(n4)
+    q[:, n4:2 * n4, 1] = hi[1] - band(n4)
+    q[:, 2 * n4:3 * n4, 0] = lo[0] + band(n4)
+    q[:, 3 * n4:4 * n4] = rng.uniform(lo - 4, hi + 4, (b, n4, 2))
+    # undo the pre-transform, so q is the body-frame point at the identity
+    c, s = np.cos(shape.yaw0), np.sin(shape.yaw0)
+    pts = np.stack([c * q[..., 0] - s * q[..., 1] + shape.tx,
+                    s * q[..., 0] + c * q[..., 1] + shape.ty], -1)
+    xy = rng.uniform(-0.05, 0.05, (b, k, 2))
+    yaw = rng.uniform(-0.01, 0.01, (b, k))
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    yaw_t = f(yaw)
+    return f(pts), f(xy), torch.cos(yaw_t), torch.sin(yaw_t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16, 32])
+def test_grid_body_every_lane_count(mesh_robots, lanes, bf16):
+    """The grid body in both forms, each S forced, K = 1, 3, 37 and 64, on
+    inputs built to tie and on the grid's edges (the bfloat16 clamp
+    case): bit for bit against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    shape = mesh_robots["heart"]
+    dt = "bfloat16" if bf16 else None
+    for k in (1, 3, 37, 64):
+        for inp in (_tie_inputs(3, 301, k, seed=k, device="cuda"),
+                    _edge_inputs(shape, 2, 300, k, seed=k, device="cuda")):
+            b, m = inp[0].shape[:2]
+            before = cs.coarse_scan.launches
+            got = cs.launch(shape, *inp, lanes, *cs.block_shape(b, m, lanes),
+                            bf16=bf16)
+            want = cs.coarse_scan_reference(shape, *inp, scan_dtype=dt)
+            torch.cuda.synchronize()
+            assert cs.coarse_scan.launches == before + 1
+            _assert_bits_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scan_dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("robot", ["heart", "cylinder"])
+def test_grid_body_matches_plain_on_card(mesh_robots, robot, scan_dtype):
+    """The wrapper's launch at M = 4096, K = 64 and at the main path's
+    512 x 64 x 96, for a grid past the 48 KB table and one past 227 KB:
+    bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    shape = mesh_robots[robot]
+    for b, m, k in ((1, 4096, 64), (512, 64, 96)):
+        _assert_form_equals_plain(
+            shape, _inputs(b, m, k, seed=m + k, device="cuda"), scan_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scan_dtype", [None, "bfloat16"])
+def test_grid_body_signed_zeros_and_nan(mesh_robots, scan_dtype):
+    """-0.0 and NaN through the grid body at S = 1, the geometry's S and
+    32, against the plain model of the kernel's algorithm (a NaN never
+    wins): bit for bit, signs of zero told apart."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    shape = mesh_robots["heart"]
+    inp = _signed_zero_nan_inputs("cuda")
+    b, m = inp[0].shape[:2]
+    k = inp[1].shape[1]
+    for lanes in sorted({1, cs.launch_geometry(b, m, k)[0], 32}):
+        got = cs.launch(shape, *inp, lanes, *cs.block_shape(b, m, lanes),
+                        bf16=scan_dtype is not None)
+        want = cs.coarse_scan_split_reference(shape, *inp, lanes,
+                                              scan_dtype)
+        _assert_bits_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_grid_body_refuses_a_wrong_grid(mesh_robots):
+    """A grid that is not float32, not contiguous or of another size
+    raises before the launch, counting nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    shape = mesh_robots["heart"]
+    inp = _inputs(1, 64, 32, seed=0, device="cuda")
+    table = shape.grid.table("cuda")
+    before = cs.coarse_scan.launches
+    for bad in (table.double(), table.t(), table[:-1].contiguous(),
+                table.cpu()):
+        with mock.patch.object(shape.grid, "table", lambda *a, **k: bad):
+            with pytest.raises(TypeError, match="grid"):
+                cs.coarse_scan(shape, *inp)
+    assert cs.coarse_scan.launches == before
+    for a, b in zip(cs.coarse_scan(shape, *inp),
+                    cs.coarse_scan_reference(shape, *inp)):
+        assert torch.equal(a, b)
+
+
+def test_wrapper_body_of_a_mesh_robot(tmp_path):
+    """A mesh robot runs the grid body; a mesh-named shape without a grid
+    has none; the grid's constants reach the kernel rounded to the scan
+    type (bfloat16's clip bound of a 141-cell axis is 140); a CPU tensor
+    takes the plain version."""
+    shape = mesh_sdf.shape_from_mesh(
+        write_prism_obj("Circle", str(tmp_path / "c.obj"), extent=2.0),
+        resolution=0.05)
+    assert cs.body_id(shape) == cs.GRID_BODY_ID
+    assert cs.GRID_BODY_ID not in cs.SHAPE_IDS.values()
+    nogrid = dataclasses.replace(shapes.make_shape("sdHeart"),
+                                 name="mesh:heart")
+    pts, xy, c, s = _cpu_inputs()
+    for dt in (None, "bfloat16"):
+        with pytest.raises(NotImplementedError):
+            cs._launch(nogrid, pts, xy, c, s, dt)
+    g = shape.grid
+    assert g.nx == 121
+    x0, y0, step, hix, hiy = g.scan_constants(torch.bfloat16)
+    assert (hix, hiy) == (120.0, 120.0)
+    assert (x0, step) == tuple(float(torch.tensor(v, dtype=torch.bfloat16))
+                               for v in (g.x0, g.step))
+    assert g.scan_constants(torch.float32)[3] == float(np.float32(119.999))
+    before = cs.coarse_scan.launches
+    for dt in (None, "bfloat16"):
+        for a, b in zip(cs.coarse_scan(shape, pts, xy, c, s, dt),
+                        cs.coarse_scan_reference(shape, pts, xy, c, s, dt)):
+            assert torch.equal(a, b)
+    assert cs.coarse_scan.launches == before

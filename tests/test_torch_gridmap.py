@@ -15,6 +15,7 @@ from svsdf_tpu.models import shapes as jshapes
 from svsdf_tpu.utils import mapgen as jmapgen
 from svsdf_tpu.utils.gridmap import GridMap as JGridMap
 from svsdf_tpu_torch import convert
+from svsdf_tpu_torch.bench import write_prism_obj
 from svsdf_tpu_torch.models import shapes
 from svsdf_tpu_torch.utils import mapgen
 from svsdf_tpu_torch.utils.gridmap import GridMap
@@ -89,8 +90,14 @@ def test_shape_from_objpath(tmp_path):
     np.testing.assert_allclose(
         s.sdf(torch.as_tensor(p)).numpy(),
         np.asarray(js.sdf(p)), rtol=0, atol=1e-6)
-    # an existing unknown mesh needs the mesh SDF, not ported yet
+    # an existing .obj of an unknown name is a mesh robot, as in JAX; a
+    # file without faces fails in both packages' mesh precompute
     mesh = tmp_path / "robot.obj"
     mesh.write_text("v 0 0 0\n")
-    with pytest.raises(NotImplementedError):
-        shapes.shape_from_objpath(str(mesh))
+    for factory in (shapes.shape_from_objpath, jshapes.shape_from_objpath):
+        with pytest.raises(IndexError):
+            factory(str(mesh))
+    write_prism_obj("Circle", str(mesh), extent=2.0)
+    s = shapes.shape_from_objpath(str(mesh))
+    js = jshapes.shape_from_objpath(str(mesh))
+    assert s.name == js.name == "mesh:robot" and s.grid is not None

@@ -72,7 +72,10 @@ def test_fresh_import_loads_no_jax():
             "svsdf_tpu_torch.planner.astar",
             "svsdf_tpu_torch.planner.parity",
             "svsdf_tpu_torch.utils.debugbus",
-            "svsdf_tpu_torch.utils.lmbm"} <= set(names)
+            "svsdf_tpu_torch.utils.lmbm",
+            "svsdf_tpu_torch.models.mesh_sdf",
+            "svsdf_tpu_torch.viz.swept_surface",
+            "svsdf_tpu_torch.utils.pcd"} <= set(names)
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", _PROBE, json.dumps(names)],
                          cwd=ROOT, env=env, capture_output=True, text=True,
@@ -166,3 +169,29 @@ def test_deformable_and_lmbm_entry_points_default_to_cuda(monkeypatch):
     x = torch.zeros((2, 3), dtype=torch.float64)
     res = lmbm.minimize(lbfgs.value_and_grad(lambda v: (v * v).sum(-1)), x)
     assert res.x.device.type == "cpu" and bool((res.f == 0.0).all())
+
+
+def test_mesh_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """A mesh robot is plain data (its grid on the host, a copy per device
+    made on use); the Planner and the batch solve that take it run on CUDA
+    unless asked for the host."""
+    import dataclasses
+    from svsdf_tpu_torch.bench import write_prism_obj
+    from svsdf_tpu_torch.models import mesh_sdf
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    obj = write_prism_obj("Circle", str(tmp_path / "cyl.obj"), extent=2.0)
+    shape = shapes.shape_from_objpath(obj)
+    assert shape.name == "mesh:cyl" and shape.grid._tables == {}
+    assert float(shape.sdf(torch.zeros((1, 2)))[0]) < 0.0
+    sc = fixtures.synthetic_scenario("Circle")
+    cfg = dataclasses.replace(sc.config, inputdata=obj)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Planner(cfg, sc.map_points)
+    h, t, o, x0 = problem(2, 4, 1)
+    prob, x = convert.problem_from_numpy(h, t, o, x0, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pb.plan_batch_staged(shape, x, prob,
+                             PlannerConfig(mem_size=BENCH_MEM_SIZE),
+                             pb.default_stages(5), 2)
+    assert isinstance(mesh_sdf.grid_sdf_3d(*mesh_sdf.load_obj(obj), 0.5),
+                      mesh_sdf.GridSDF3D)
