@@ -103,18 +103,45 @@ Phases, one line each (any failure raises and the exit code is not 0):
      card (median cost within 1e-3 relative); (d) Planner.plan with the
      cylinder (config inputdata: its .obj) on synthetic_Circle's map at
      scripts/run_scenarios.py's SVSDF settings, gated as in phase 9,
-     beside phase 9's analytic Circle plan; (e) the grid query of phase
+     beside phase 9's analytic Circle plan, then the cylinder's
+     OnlineReplanner replan on the same map with the kernel and with the
+     plain scan (cost and certificate within 1e-3 relative); (e) the grid
+     query of phase
      11 with the sdHeart prism (queries/s; the field within 1e-3 m of the
      host's float64 plain run); (f) the 3-D swept volume of (d)'s plan:
      the cylinder's volumetric grid (grid_sdf_3d, resolution 0.15,
      margin 1.0), the swept field on the card (eps 0.25, 128 poses)
      against the host's (within 1e-5 m), marching tetrahedra, a
-     watertight mesh, written to chiprun_out/.
+     watertight mesh, written to chiprun_out/;
+ 15. the deployment loop (deployment_loop): (a) one replan with phase 7's
+     synthetic_sdTrapezoid replanner, then a live back-end solve from its
+     trajectory under the live dashboard (chiprun_out/live.html), one
+     opti_cost entry an iteration run; (b) the trajectory through the
+     PolyTraj JSON (coefficients bit for bit), a MincoTraj re-solved on
+     the card (positions within 1e-5 m over 200 times) and a plan
+     checkpoint (bit for bit); (c) sample_commands and odom_from_commands
+     on the card against a host float64 run of the same trajectory
+     (within 1e-5 of max(1, |value|); yaw and yaw_rate * dt within 1e-4
+     rad), fly against the host's float64 flight (positions within 1e-4
+     m), the launches a tick and a flight's own from device traces of
+     the flight's first 5 and 10 ticks (the second into chiprun_out/),
+     then phase 4's last bfloat16 trajectories (B=512) flown in lockstep,
+     each lane's tracking error finite; (d) render_depth_batch at the
+     reference camera at 16 poses along the flight, of the scenario's map
+     cloud, and at 16 poses along phase 7's forest replan, of the forest
+     map (56,412 points), each against the host's render (the same pixels
+     set but for 0.1% on a rounding boundary, each depth equal); (e) the
+     synthetic_Circle Planner, and the reference-size sdHeart Planner on
+     the forest map with its fine-yaw planners (18, 36 and 72 yaw bins),
+     each built in-process only, then cold and warm on a fresh memo
+     directory (kernels, stencils and feasibility equal to the bit); (f)
+     each step a profiling.stage, and PROFILE.report().
+The disk memo's root is a fresh temporary directory for the whole run.
 Every line carries elapsed_s, the seconds since the script started.
 Phase 3's parity cases cover every body, the ten of phase 10 included,
 each bit for bit, and time each body at 512x64x96 against its bound.
 The coarse-scan launches are counted over each path (phases 4, 6, 7, 9,
-each solve of 10, 11, 12, 13 and each path of 14) from 0, in all and by
+each solve of 10, 11, 12, 13, each path of 14 and 15) from 0, in all and by
 form, and after
 each path the kernel is held bit for bit against its plain version, on
 seeded inputs (and seeded pose times for a deformable robot), at every
@@ -127,6 +154,7 @@ grid body), the nvidia-smi line, and as the last line {"ok": true,
 from __future__ import annotations
 
 import dataclasses
+import glob
 import json
 import math
 import os
@@ -559,6 +587,326 @@ def rel_diff(a, b):
     return float(((a - b).abs() / b.abs().clamp_min(1.0)).max())
 
 
+def deployment_loop(torch, rp, sc, fleet, scene, memo_cases, dev,
+                    out_dir):
+    """Phase 15, the deployment loop on ``dev`` against the host: (a) a
+    replan with ``rp`` (phase 7's synthetic_sdTrapezoid replanner) and a
+    live back-end solve of its trajectory under the live dashboard; (b)
+    the trajectory through the wire formats and a checkpoint; (c) its
+    command stream, odometry and closed-loop flight against a host float64
+    run of the same functions, the launches of 5 and of 10 ticks traced,
+    then the flight of ``fleet`` (B trajectories) in lockstep; (d) depth
+    images against the host's: of the scenario's map along the flight, and
+    of ``scene`` = (name, cloud (P, 3), trajectory) at 16 poses along the
+    trajectory's command stream; (e) the disk memo: each of ``memo_cases``
+    = (name, config, map points, fine-yaw factors), a ``Planner`` and its
+    fine-yaw planners built in-process only, then cold and warm on a fresh
+    root; (f) the stage profile, and (in (c)) a device trace of the
+    flight's first 10 ticks into ``out_dir``.
+    Every step is a ``profiling.stage``. Raises when a step misses its
+    limit; returns {step: its line's readings}."""
+    import numpy as np
+    from svsdf_tpu_torch.io import (MincoTraj, PolyTraj, decode_minco_traj,
+                                    decode_poly_traj, encode_minco_traj,
+                                    encode_poly_traj)
+    from svsdf_tpu_torch.planner import back_end, traj_server
+    from svsdf_tpu_torch.planner.pipeline import Planner
+    from svsdf_tpu_torch.sim import closed_loop, kinematic
+    from svsdf_tpu_torch.sim import depth_camera as dc
+    from svsdf_tpu_torch.utils import cache, checkpoint, profiling
+    from svsdf_tpu_torch.utils import trajectory as trj
+    from svsdf_tpu_torch.utils.debugbus import BUS
+    from svsdf_tpu_torch.utils.transforms import backward_t
+    from svsdf_tpu_torch.viz.dashboard import LiveDashboard
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def clock(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    def host64(tr):
+        return trj.Trajectory(tr.coeffs.detach().cpu().double(),
+                              tr.durations.detach().cpu().double())
+
+    def near(a, b, limit, what):
+        err = rel_diff(a.detach().double().cpu(), b)
+        if not err <= limit:
+            raise AssertionError(f"{what}: {err} past {limit}")
+        return err
+
+    profiling.PROFILE.clear()
+    lines = {}
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        # (a) plan: a replan, then a live back-end solve from it
+        with profiling.stage("15a_plan"):
+            r, replan_s = clock(lambda: rp.replan(sc.start[:2], sc.goal[:2]))
+            if not (r.success and math.isfinite(r.cost) and r.cert_min > 0):
+                raise AssertionError(f"deployment replan: success "
+                                     f"{r.success} cert {r.cert_min}")
+            traj = trj.Trajectory(r.traj.coeffs.to(dev),
+                                  r.traj.durations.to(dev))
+            ends = torch.cat([torch.zeros_like(traj.durations[:, :1]),
+                              traj.total_duration[:, None]], 1)
+            pva = torch.stack([trj.eval_at(traj, ends, k)[0]
+                               for k in range(3)], 1)    # (2, 3, 3)
+            head, tail = pva[0], pva[1]
+            wps = traj.coeffs[0, 1:, 0, :]
+            x0 = torch.cat([backward_t(traj.durations[0]),
+                            wps.reshape(-1)])[None]
+            BUS.series.clear()
+            BUS.events.clear()
+            BUS.clear_stop()
+            BUS.resume()
+            with LiveDashboard(BUS, os.path.join(out_dir, "live.html"),
+                               interval_s=0.25) as live:
+                res, live_s = clock(lambda: back_end.optimize(
+                    rp.shape, head[None], tail[None],
+                    torch.as_tensor(r.obstacles)[None], x0, cfg=rp.config,
+                    max_iters=40, live=True, device=dev))
+            steps = [st for (_, st, _) in BUS.series["opti_cost"]]
+            n_it = int(res.n_iters[0])
+            # one entry an iteration run; the counter skips the rest of a
+            # stage that converges early and ends one past the last
+            if not (steps and all(a < b for a, b in zip(steps, steps[1:]))
+                    and steps[-1] + 1 == n_it and live.renders >= 1
+                    and bool(torch.isfinite(res.cost).all())):
+                raise AssertionError(f"live solve: {len(steps)} entries, "
+                                     f"counter {n_it}, {live.renders} "
+                                     "renders")
+            lines["deploy_plan"] = dict(
+                scenario=sc.name, replan_s=replan_s, success=r.success,
+                cost=r.cost, cert_min=r.cert_min, pieces=traj.num_pieces,
+                duration_s=float(traj.total_duration[0]),
+                live_solve_s=live_s, live_cost=float(res.cost[0]),
+                opti_cost_entries=len(steps), iteration_counter=n_it,
+                renders=live.renders, dashboard="chiprun_out/live.html")
+
+        # (b) wire: PolyTraj JSON, MincoTraj re-solved here, a checkpoint
+        with profiling.stage("15b_wire"):
+            wire = PolyTraj.from_json(encode_poly_traj(r.traj).to_json())
+            back = decode_poly_traj(wire, device=dev)
+            poly_exact = (torch.equal(back.coeffs.cpu(), r.traj.coeffs)
+                          and torch.equal(back.durations.cpu(),
+                                          r.traj.durations))
+            mmsg = MincoTraj.from_dict(json.loads(json.dumps(
+                encode_minco_traj(traj.durations[0], head, tail,
+                                  wps).to_dict())))
+            mback = decode_minco_traj(mmsg, device=dev)
+            ts200 = torch.linspace(0.0, float(traj.total_duration[0]), 200,
+                                   device=dev)[None]
+            minco_err = float((trj.pos(mback, ts200) - trj.pos(traj, ts200)
+                               )[..., :2].abs().max())
+            path = checkpoint.save_plan(os.path.join(tmp.name, "plan.npz"),
+                                        res.opt_x, res.traj,
+                                        scenario=sc.name,
+                                        cost=float(res.cost[0]))
+            ck = checkpoint.load_plan(path, device=dev)
+            ck_exact = (torch.equal(ck.opt_x, res.opt_x)
+                        and torch.equal(ck.traj.coeffs, res.traj.coeffs)
+                        and torch.equal(ck.traj.durations,
+                                        res.traj.durations))
+            if not (poly_exact and minco_err <= 1e-5 and ck_exact):
+                raise AssertionError(f"wire: PolyTraj exact {poly_exact}, "
+                                     f"MincoTraj {minco_err} m, checkpoint "
+                                     f"exact {ck_exact}")
+            lines["deploy_wire"] = dict(
+                polytraj_json_bytes=len(wire.to_json()),
+                polytraj_bitwise=poly_exact, minco_max_err_m=minco_err,
+                minco_json_bytes=len(json.dumps(mmsg.to_dict())),
+                checkpoint_bitwise=ck_exact,
+                checkpoint_bytes=os.path.getsize(path))
+
+        # (c) commands, odometry and flight against the host in float64
+        with profiling.stage("15c_flight"):
+            h = host64(r.traj)
+            cmds, cmds_s = clock(lambda: traj_server.sample_commands(traj))
+            cmds_h = traj_server.sample_commands(h)
+            errs = {f: near(getattr(cmds, f), getattr(cmds_h, f), 1e-5, f)
+                    for f in ("t", "pos", "vel", "acc", "jerk")}
+            errs["yaw"] = float(traj_server._wrap(
+                cmds.yaw.double().cpu() - cmds_h.yaw).abs().max())
+            errs["yaw_rate_dt"] = float(
+                ((cmds.yaw_rate.double().cpu() - cmds_h.yaw_rate)
+                 * 0.01).abs().max())
+            # the yaw target is the angle of a look-ahead vector as short
+            # as 0.1 m between two float32 positions of a 50 m map (~3e-6 m
+            # each): ~6e-5 rad of float32 rounding
+            if not max(errs["yaw"], errs["yaw_rate_dt"]) <= 1e-4:
+                raise AssertionError(f"command yaw vs host: {errs}")
+            errs["odom_quat"] = near(
+                kinematic.odom_from_commands(cmds).quat,
+                kinematic.odom_from_commands(cmds_h).quat, 1e-5, "odom")
+            log, fly_s = clock(lambda: closed_loop.fly(traj))
+            log_h, fly_host_s = clock(lambda: closed_loop.fly(h))
+            fly_err = float((log.pos.double().cpu() - log_h.pos).abs().max())
+            if not fly_err <= 1e-4:
+                raise AssertionError(f"flight vs host: {fly_err} m")
+            # the launches of the flight's first 5 and 10 ticks (~2 MB of
+            # trace a tick: the whole flight's would not fit the output);
+            # every tick runs the same launches, so the difference over the
+            # 5 more ticks is a tick's and the rest is a flight's own
+            traced = []
+            for n, into in ((5, tmp.name), (10, out_dir)):
+                prefix = trj.Trajectory(traj.coeffs[:, :1], torch.clamp(
+                    traj.durations[:, :1], max=(n - 0.5) * 0.01))
+                with profiling.device_trace(into) as tprof:
+                    closed_loop.fly(prefix)
+                    sync()
+                traced.append((int(traj_server.n_ticks(
+                    prefix, traj_server.TrajServerConfig())[0]),
+                    device_events(torch, tprof)))
+            (t5, k5), (t10, k10) = traced
+            per_tick = (len(k10) - len(k5)) / (t10 - t5)
+            ticks = log.pos.shape[1]
+            err = log.track_err[0]
+            lines["deploy_flight"] = dict(
+                ticks=ticks, commands_s=cmds_s, command_err_vs_host=errs,
+                track_err_max_m=float(err.max()),
+                track_err_final_m=float(err[-1]), flight_s=fly_s,
+                host_f64_flight_s=fly_host_s, pos_err_vs_host_m=fly_err,
+                traced_ticks=[t5, t10], traced_launches=[len(k5), len(k10)],
+                launches_per_tick=per_tick,
+                fixed_launches=len(k5) - per_tick * t5,
+                traced_device_busy_s=[sum(us for _, us in k) / 1e6
+                                      for k in (k5, k10)])
+            flog, fleet_s = clock(lambda: closed_loop.fly(fleet))
+            lane_max = flog.track_err.max(dim=1).values
+            if not bool(torch.isfinite(flog.track_err).all()):
+                raise AssertionError("fleet: a lane's tracking error is not "
+                                     "finite")
+            nb, fticks = flog.pos.shape[:2]
+            lines["deploy_fleet"] = dict(
+                flights=nb, ticks=fticks, fleet_s=fleet_s,
+                flight_ticks_per_s=nb * fticks / fleet_s,
+                # lanes whose Trajectory.total_duration (torch.sum) is
+                # not the server's ordered sum on this device
+                sum_order_lanes_differing=int(
+                    (fleet.total_duration
+                     != traj_server.total_duration(fleet)).sum()),
+                lane_track_err_max_m=dict(
+                    median=float(lane_max.median()),
+                    max=float(lane_max.max())))
+
+        # (d) depth images against the host's: the scenario's map along
+        # the flight, then ``scene``'s cloud along its trajectory
+        with profiling.stage("15d_sensing"):
+            cam = dc.CameraModel()
+            reps = 5
+
+            def images(name, cloud, pos, yaw):
+                """16 images of ``cloud`` at poses along (pos, yaw) (T, 3),
+                (T,) on the card and on the host: their readings."""
+                ks = np.linspace(0, len(yaw) - 1, 16).astype(int)
+                poses = [dc.sensing_pose_from_odom(pos[k], float(yaw[k]))
+                         for k in ks]
+                Rb = np.stack([p[0] for p in poses])
+                tb = np.stack([p[1] for p in poses])
+                cloud = torch.as_tensor(np.asarray(cloud, np.float32))
+                render = lambda c: dc.render_depth_batch(c, Rb, tb, cam)
+                cloud_d = cloud.to(dev)
+                render(cloud_d)
+                imgs, wall = clock(lambda: [render(cloud_d)
+                                            for _ in range(reps)][-1])
+                imgs_h = render(cloud)
+                set_d, set_h = (imgs > 0).cpu(), imgs_h > 0
+                edge = int((set_d != set_h).sum())
+                both = set_d & set_h
+                same = bool(torch.equal(imgs.cpu()[both], imgs_h[both]))
+                if not (int(set_h.sum()) > 0 and same
+                        and edge <= 0.001 * int(set_h.sum())):
+                    raise AssertionError(f"depth of {name} vs host: {edge} "
+                                         f"pixels set on one side, depths "
+                                         f"equal {same}")
+                pts = sum(len(dc.depth_to_points(im, R, t, cam, stride=2))
+                          for im, R, t in zip(imgs, Rb, tb))
+                return dict(cloud=name, cloud_points=len(cloud),
+                            images=len(ks), ms_per_image=wall / reps
+                            / len(ks) * 1e3, pixels_set=int(set_h.sum()),
+                            pixels_set_one_side=edge, depths_bitwise=same,
+                            stride2_cloud_points=pts)
+
+            name, cloud, straj = scene
+            scmds = traj_server.sample_commands(trj.Trajectory(
+                straj.coeffs.to(dev), straj.durations.to(dev)))
+            lines["deploy_sensing"] = dict(
+                size=[cam.height, cam.width],
+                clouds=[images(sc.name, sc.map_points, log.pos[0].cpu()
+                               .numpy(), cmds.yaw[0].cpu().numpy()),
+                        images(name, cloud, scmds.pos[0].cpu().numpy(),
+                               scmds.yaw[0].cpu().numpy())])
+
+        # (e) the disk memo: each case's Planner and fine-yaw planners
+        # built in-process only (no disk), then cold and warm on a fresh
+        # root, then in-process again
+        with profiling.stage("15e_memo"):
+            def build(cfg, pts, factors):
+                p = Planner(cfg, pts, device=dev)
+                return [(q._kernels, q._stencils(q.guard_ladder[0]),
+                         torch.as_tensor(q.feas))
+                        for q in [p] + [p._get_fine_planner(f)
+                                        for f in factors]]
+
+            def equal(a, b):
+                return all(torch.equal(x.cpu(), y.cpu())
+                           for pa, pb in zip(a, b) for x, y in zip(pa, pb))
+
+            lines["deploy_memo"] = dict(cases=[])
+            root = os.environ.get("SVSDF_TORCH_CACHE_DIR")
+            for name, cfg, pts, factors in memo_cases:
+                memo = tempfile.TemporaryDirectory()
+                os.environ["SVSDF_TORCH_CACHE_DIR"] = memo.name
+                try:
+                    with mock.patch.object(cache, "memo_prefix",
+                                           lambda shape: None):
+                        ref, nodisk_s = clock(lambda: build(cfg, pts,
+                                                            factors))
+                    cold, cold_s = clock(lambda: build(cfg, pts, factors))
+                    warm, warm_s = clock(lambda: build(cfg, pts, factors))
+                    with mock.patch.object(cache, "memo_prefix",
+                                           lambda shape: None):
+                        _, nodisk2_s = clock(lambda: build(cfg, pts,
+                                                           factors))
+                    files = [os.path.join(memo.name, f)
+                             for f in os.listdir(memo.name)]
+                    disk_bytes = sum(os.path.getsize(f) for f in files)
+                finally:
+                    if root is None:
+                        del os.environ["SVSDF_TORCH_CACHE_DIR"]
+                    else:
+                        os.environ["SVSDF_TORCH_CACHE_DIR"] = root
+                    memo.cleanup()
+                exact = equal(cold, warm) and equal(ref, cold)
+                if not (exact and len(files) == 2 * len(cold)):
+                    raise AssertionError(f"memo of {name}: warm equals cold "
+                                         f"equals in-process {exact}, "
+                                         f"{len(files)} entries")
+                lines["deploy_memo"]["cases"].append(dict(
+                    case=name, kernel_size=cfg.kernel_size,
+                    yaw_bins=[cfg.kernel_yaw_num * f for f in (1, *factors)],
+                    in_process_s=nodisk_s, cold_build_s=cold_s,
+                    warm_build_s=warm_s, in_process_again_s=nodisk2_s,
+                    entries=len(files), bytes=disk_bytes,
+                    warm_bitwise=exact))
+
+        # (f) the stage profile and (c)'s device trace
+        traces = sorted(glob.glob(os.path.join(out_dir, "*.pt.trace.json")),
+                        key=os.path.getmtime)
+        lines["deploy_profile"] = dict(
+            report=profiling.PROFILE.report().splitlines(),
+            trace=os.path.relpath(traces[-1], ROOT),
+            trace_bytes=os.path.getsize(traces[-1]))
+    finally:
+        tmp.cleanup()
+    return lines
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -566,6 +914,9 @@ def main() -> int:
     # -- 1. environment ------------------------------------------------
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card")
+    # a fresh disk memo (utils/cache.py): every run's planners build cold
+    memo_root = tempfile.TemporaryDirectory()
+    os.environ["SVSDF_TORCH_CACHE_DIR"] = memo_root.name
     from svsdf_tpu_torch import convert
     from svsdf_tpu_torch.bench import (BENCH_MEM_SIZE, e2e_draws, e2e_setup,
                                        grid_setup, problem, write_prism_obj)
@@ -796,14 +1147,16 @@ def main() -> int:
         say("main_path_profile", scan=form, B=batch, **profile_solve(
             torch, lambda: float(pb.plan_batch_staged(
                 heart, x0_t, prob, cfg, stages_, n).cost.sum())))
-        return statistics.median(costs), launches, log
+        return statistics.median(costs), launches, log, out.traj
 
     # the JAX package's bench.py configuration (bfloat16 scans), then the
-    # float32 variant the earlier readings were taken at
-    bf16_cost, bf16_launches, bf16_log = main_path(
+    # float32 variant the earlier readings were taken at; phase 15 flies
+    # the bfloat16 run's last trajectories
+    bf16_cost, bf16_launches, bf16_log, fleet = main_path(
         pb.default_stages(iters), "bfloat16", seed=1100)
     stages = pb.default_stages(iters, scan_dtype=None)
-    main_cost, launches, main_log = main_path(stages, "float32", seed=1000)
+    main_cost, launches, main_log, _ = main_path(stages, "float32",
+                                                 seed=1000)
 
     # -- 5. checks -----------------------------------------------------
     small = 32
@@ -956,6 +1309,7 @@ def main() -> int:
                 n_obs=rp.n_obs, success=r.success, cost=r.cost,
                 cert_min=r.cert_min, refine_solves=nr)
             if name == "sdTrapezoid":
+                deploy_rp, deploy_sc = rp, sc      # phase 15 replans here
                 jittered(rp, sc.name, sc.start[:2], sc.goal[:2], rp.stages,
                          solves, "synthetic gate map, OnlineReplanner's "
                          "default stages (default_stages_lowlat(50), "
@@ -965,15 +1319,16 @@ def main() -> int:
         # n_pieces=12, n_obs=160, default_stages(80), 14 refine rounds,
         # tightness 8), on the forest map with sdHeart: its reference map
         # is not in the repo
-        rp = OnlineReplanner(PlannerConfig(), mapgen.map_forest(
-            res=0.5, seed=3, n_trees=14), n_pieces=12, n_obs=160,
-            stages=product, refine_rounds=14, refine_iters=12,
-            tightness_weight=8.0)
+        forest_map = mapgen.map_forest(res=0.5, seed=3, n_trees=14)
+        rp = OnlineReplanner(PlannerConfig(), forest_map, n_pieces=12,
+                             n_obs=160, stages=product, refine_rounds=14,
+                             refine_iters=12, tightness_weight=8.0)
         pair = e2e.cells[np.random.default_rng(0).integers(
             0, len(e2e.cells), 2)]
         start_f, goal_f = (e2e.grid.xyz_min[:2] + (pair + 0.5) * res_e)
         r, nr = replan_once(rp, "forest_sdHeart", start_f, goal_f, product,
                             solves)
+        forest_traj = r.traj                  # phase 15 senses along it
         say("replan", scenario="forest_sdHeart",
             build_breakdown=rp.build_breakdown, n_obs=rp.n_obs,
             success=r.success, cost=r.cost, cert_min=r.cert_min,
@@ -1333,6 +1688,34 @@ def main() -> int:
                              min_cert_sdf=circle.min_cert_sdf),
         **recorded_row(rec))
     mesh_plan_log.check(torch, "mesh planner", seed=9200)
+    # (d) the cylinder's replan on the same map, with the kernel and with
+    # the plain scan
+    rp_cyl = OnlineReplanner(cyl_cfg, sc.map_points)
+    cs.reset_launches()
+    with ShapeLog(cs) as mesh_replan_log:
+        rk, rk_s = timed(torch, lambda: rp_cyl.replan(sc.start[:2],
+                                                       sc.goal[:2]))
+    mesh_replan_by_form = dict(cs.coarse_scan.form_launches)
+    with mock.patch.object(cs, "coarse_scan", cs.coarse_scan_reference):
+        rpl, rpl_s = timed(torch, lambda: rp_cyl.replan(sc.start[:2],
+                                                         sc.goal[:2]))
+    rel_cost = abs(rk.cost - rpl.cost) / abs(rpl.cost)
+    rel_cert = abs(rk.cert_min - rpl.cert_min) / abs(rpl.cert_min)
+    if not (rk.success and rpl.success and rk.cert_min > 0
+            and cs.coarse_scan.launches > 0
+            and max(rel_cost, rel_cert) <= 1e-3):
+        raise AssertionError(f"cylinder replan: kernel {rk.cost} / "
+                             f"{rk.cert_min}, plain {rpl.cost} / "
+                             f"{rpl.cert_min}, launches "
+                             f"{cs.coarse_scan.launches}")
+    say("mesh_replan", scenario=sc.name, robot=rp_cyl.shape.name,
+        build_breakdown=rp_cyl.build_breakdown, replan_s=rk_s,
+        plain_replan_s=rpl_s, success=rk.success, cost=rk.cost,
+        cert_min=rk.cert_min, plain_cost=rpl.cost,
+        plain_cert_min=rpl.cert_min, rel_diff_cost=rel_cost,
+        rel_diff_cert=rel_cert, kernel_launches=sum(
+            mesh_replan_by_form.values()), form_launches=mesh_replan_by_form)
+    mesh_replan_log.check(torch, "mesh replan", seed=9300)
 
     # (e) the grid query with the sdHeart prism
     cs.reset_launches()
@@ -1403,6 +1786,26 @@ def main() -> int:
         watertight=True, obj=os.path.relpath(obj_path, ROOT))
     mesh_dir.cleanup()
 
+    # -- 15. the deployment loop ---------------------------------------
+    cs.reset_launches()
+    with ShapeLog(cs) as deploy_log:
+        circle = fixtures.synthetic_scenario("Circle")
+        deploy = deployment_loop(
+            torch, deploy_rp, deploy_sc, fleet,
+            ("forest_sdHeart", forest_map, forest_traj),
+            [("synthetic_Circle", circle.config, circle.map_points, ()),
+             ("forest_sdHeart", PlannerConfig(), forest_map, (2, 4))],
+            torch.device("cuda"), out_dir)
+    deploy_by_form = dict(cs.coarse_scan.form_launches)
+    if deploy_by_form["bfloat16"] <= 0 or deploy_by_form["float32"] <= 0:
+        raise AssertionError("the deployment loop's replan and live solve "
+                             f"launched {deploy_by_form} coarse scans")
+    for step, line in deploy.items():
+        say(step, **line)
+    say("deploy_launches", kernel_launches=cs.coarse_scan.launches,
+        form_launches=deploy_by_form)
+    deploy_log.check(torch, "deployment", seed=9500)
+
     def kernel_entry(form, launches_, t, **extra):
         """The kernel table's entry of one form, timed at ``t``."""
         return {"name": "svsdf_coarse_scan" + (
@@ -1430,7 +1833,8 @@ def main() -> int:
                               "planner": planner_launches,
                               "staged_bodies": body_launches,
                               "grid": grid_launches,
-                              "lmbm_planner": lmbm_launches},
+                              "lmbm_planner": lmbm_launches,
+                              "deployment": deploy_by_form["float32"]},
             shapes_ran={"main": main_log.summary("float32"),
                         "e2e": e2e_log.summary("float32"),
                         "e2e_float32": e2e_f32_log.summary("float32"),
@@ -1438,7 +1842,8 @@ def main() -> int:
                         "planner": plan_log.summary(),
                         "staged_bodies": body_logs,
                         "grid": grid_log.summary(),
-                        "lmbm_planner": lmbm_log.summary()},
+                        "lmbm_planner": lmbm_log.summary(),
+                        "deployment": deploy_log.summary("float32")},
             main_path_median_cost=main_cost, bodies=body_times,
             scan_times=timings,
             grid_scan=next(t for t in timings if t["path"] == "grid")),
@@ -1447,10 +1852,12 @@ def main() -> int:
             counterpart_of=xla_scan,
             launches_by_path={"main": bf16_launches,
                               "e2e": e2e_by_form["bfloat16"],
-                              "replan": replan_by_form["bfloat16"]},
+                              "replan": replan_by_form["bfloat16"],
+                              "deployment": deploy_by_form["bfloat16"]},
             shapes_ran={"main": bf16_log.summary("bfloat16"),
                         "e2e": e2e_log.summary("bfloat16"),
-                        "replan": replan_log.summary("bfloat16")},
+                        "replan": replan_log.summary("bfloat16"),
+                        "deployment": deploy_log.summary("bfloat16")},
             main_path_median_cost=bf16_cost,
             grid_scan=form_times["bfloat16"][1]),
         kernel_entry(
@@ -1469,18 +1876,23 @@ def main() -> int:
             counterpart_of=xla_scan,
             launches_by_path={"mesh_main": mesh_launches,
                               "mesh_planner": mesh_plan_launches,
-                              "mesh_grid": mesh_grid_launches},
+                              "mesh_grid": mesh_grid_launches,
+                              "mesh_replan": mesh_replan_by_form["float32"]},
             shapes_ran={"mesh_main": mesh_log.summary("float32"),
                         "mesh_planner": mesh_plan_log.summary(),
-                        "mesh_grid": mesh_grid_log.summary()},
+                        "mesh_grid": mesh_grid_log.summary(),
+                        "mesh_replan": mesh_replan_log.summary("float32")},
             grid_scan=form_times["grid_float32"][1]),
         kernel_entry(
             "grid_bfloat16", mesh_bf16_launches,
             form_times["grid_bfloat16"][0], counterpart_of=xla_scan,
-            launches_by_path={"mesh_main": mesh_bf16_launches},
-            shapes_ran={"mesh_main": mesh_bf16_log.summary("bfloat16")},
+            launches_by_path={"mesh_main": mesh_bf16_launches,
+                              "mesh_replan": mesh_replan_by_form["bfloat16"]},
+            shapes_ran={"mesh_main": mesh_bf16_log.summary("bfloat16"),
+                        "mesh_replan": mesh_replan_log.summary("bfloat16")},
             grid_scan=form_times["grid_bfloat16"][1]),
     ]}), flush=True)
+    memo_root.cleanup()
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -12,9 +12,9 @@ certificate run on ``device`` (None: CUDA, raising without it) in
 ``dtype``, the port's counterpart of the JAX package's x64 switch
 (float32 is the JAX default; the tests pass float64 against JAX under
 x64). The A* search, the waypoint subsample and the obstacle harvest
-run on the host. The JAX package's disk memo of the map products
-(utils/cache.py) becomes an in-process dict: the eager port has no
-compile to cache.
+run on the host. The shape's one-shot rasterizations (yaw kernels,
+transition stencils) go through the disk memo (utils/cache.py), keyed on
+the shape, the geometry knobs, the dtype and the device type.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ from svsdf_tpu_torch.models import shapes
 from svsdf_tpu_torch.ops import kernels as kops
 from svsdf_tpu_torch.ops.svsdf import DEFAULT_CONFIG, SVSDFConfig, svsdf_query
 from svsdf_tpu_torch.planner import astar, back_end, mid_end
+from svsdf_tpu_torch.utils import cache
 from svsdf_tpu_torch.utils import trajectory as trj
 from svsdf_tpu_torch.utils.config import PlannerConfig
 from svsdf_tpu_torch.utils.debugbus import BUS
@@ -91,6 +92,7 @@ class Planner:
         #: and every SVSDF query sees its time-varying scale
         self.shape = shape if shape is not None else \
             shapes.shape_from_objpath(config.inputdata, config.poly_params)
+        self._memo_prefix = cache.memo_prefix(self.shape)
         self.grid = GridMap.from_points(
             map_points, config.occupancy_resolution, config.sta_threshold)
         # yaw-bin feasibility of the map, on the device
@@ -129,12 +131,21 @@ class Planner:
     # -- precompute memoization ---------------------------------------------
 
     def _memo(self, key: str, fn):
-        """Compute a one-shot map product once per planner. The memo
-        lives with the planner and its one shape, so no key names the
-        shape (the JAX package's disk memo must skip a time-varying
-        shape, whose scale callable has no stable identity)."""
+        """A one-shot precompute of the shape, once per planner: from the
+        disk memo (utils/cache.py), keyed on the shape's identity and the
+        precompute's code (``cache.memo_prefix``), ``key``, the dtype and
+        the device type, as a tensor on the device. A shape without a
+        stable identity (a time-varying scale callable) computes in-process
+        only."""
         if key not in self._memo_cache:
-            self._memo_cache[key] = fn()
+            if self._memo_prefix is None:
+                val = fn()
+            else:
+                val = torch.as_tensor(cache.memoize_npz(
+                    f"{self._memo_prefix}|{key}|{self.dtype}|"
+                    f"{self.device.type}", lambda: fn().cpu().numpy()),
+                    device=self.device)
+            self._memo_cache[key] = val
         return self._memo_cache[key]
 
     def _sync(self):

@@ -100,7 +100,12 @@ def locate_piece(durations, t):
 
 
 def eval_at_gather(traj: Trajectory, t, order: int = 0):
-    """Evaluate by gathering the located piece's coefficients."""
+    """Evaluate by gathering the located piece's coefficients. The basis
+    terms are summed in ascending power, one after the other: the order
+    XLA's dot takes on the host, so in float64 the values equal the JAX
+    package's ``eval_at`` to the bit up to 16 pieces, past which XLA's
+    cumulative sum of the durations regroups (the command stream samples
+    with it)."""
     b = traj.coeffs.shape[0]
     idx, s = locate_piece(traj.durations, t)
     shape = s.shape
@@ -109,7 +114,9 @@ def eval_at_gather(traj: Trajectory, t, order: int = 0):
     c = torch.gather(traj.coeffs, 1,
                      idx[..., None, None].expand(-1, -1, nc, d))
     beta = _basis(s.reshape(b, -1), order, nc)          # (B, Q, nc)
-    out = torch.einsum("bqk,bqkd->bqd", beta, c)
+    out = beta[..., 0, None] * c[..., 0, :]
+    for k in range(1, nc):
+        out = out + beta[..., k, None] * c[..., k, :]
     return out.reshape(shape + (d,))
 
 

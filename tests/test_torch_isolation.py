@@ -75,7 +75,20 @@ def test_fresh_import_loads_no_jax():
             "svsdf_tpu_torch.utils.lmbm",
             "svsdf_tpu_torch.models.mesh_sdf",
             "svsdf_tpu_torch.viz.swept_surface",
-            "svsdf_tpu_torch.utils.pcd"} <= set(names)
+            "svsdf_tpu_torch.utils.pcd",
+            "svsdf_tpu_torch.planner.traj_server",
+            "svsdf_tpu_torch.io", "svsdf_tpu_torch.io.polytraj",
+            "svsdf_tpu_torch.sim.kinematic",
+            "svsdf_tpu_torch.sim.quadrotor",
+            "svsdf_tpu_torch.sim.so3_control",
+            "svsdf_tpu_torch.sim.closed_loop",
+            "svsdf_tpu_torch.sim.depth_camera",
+            "svsdf_tpu_torch.utils.profiling",
+            "svsdf_tpu_torch.utils.checkpoint",
+            "svsdf_tpu_torch.utils.cache",
+            "svsdf_tpu_torch.viz.dashboard",
+            "svsdf_tpu_torch.utils.geo",
+            "svsdf_tpu_torch.viz.scene"} <= set(names)
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", _PROBE, json.dumps(names)],
                          cwd=ROOT, env=env, capture_output=True, text=True,
@@ -195,3 +208,40 @@ def test_mesh_entry_points_default_to_cuda(monkeypatch, tmp_path):
                              pb.default_stages(5), 2)
     assert isinstance(mesh_sdf.grid_sdf_3d(*mesh_sdf.load_obj(obj), 0.5),
                       mesh_sdf.GridSDF3D)
+
+
+def test_deployment_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """The deployment loop's functions that build tensors from host data
+    (a decoded message, a loaded checkpoint, a hover state) run on CUDA
+    unless asked for the host; the others run where their tensors are."""
+    from svsdf_tpu_torch.io import (decode_minco_traj, decode_poly_traj,
+                                    encode_minco_traj, encode_poly_traj)
+    from svsdf_tpu_torch.ops import minco
+    from svsdf_tpu_torch.planner import traj_server
+    from svsdf_tpu_torch.sim import closed_loop, quadrotor
+    from svsdf_tpu_torch.utils import checkpoint
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    times = torch.ones((1, 3))
+    head = torch.zeros((1, 3, 3))
+    tail = torch.zeros((1, 3, 3))
+    tail[0, 0, 0] = 3.0
+    wps = torch.tensor([[[1.0, 0.2, 0.0], [2.0, -0.2, 0.0]]])
+    traj = minco.solve(times, head, tail, wps)
+    msg = encode_poly_traj(traj)
+    mmsg = encode_minco_traj(times[0], head[0], tail[0], wps[0])
+    path = checkpoint.save_plan(str(tmp_path / "p.npz"), torch.zeros(1, 9),
+                                traj)
+    bpath = checkpoint.save_batch(str(tmp_path / "b.npz"), torch.zeros(2, 9),
+                                  torch.zeros(2), torch.zeros(2, dtype=bool))
+    for call in (lambda: decode_poly_traj(msg),
+                 lambda: decode_minco_traj(mmsg),
+                 lambda: checkpoint.load_plan(path),
+                 lambda: checkpoint.load_batch(bpath),
+                 lambda: quadrotor.hover_state((0.0, 0.0, 1.0))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert decode_poly_traj(msg, device="cpu").coeffs.device.type == "cpu"
+    assert checkpoint.load_plan(path, device="cpu").opt_x.shape == (1, 9)
+    stream = traj_server.sample_commands(traj)
+    assert stream.pos.device.type == "cpu" and stream.pos.shape[0] == 1
+    assert closed_loop.fly(traj).pos.device.type == "cpu"
