@@ -135,13 +135,47 @@ Phases, one line each (any failure raises and the exit code is not 0):
      the forest map with its fine-yaw planners (18, 36 and 72 yaw bins),
      each built in-process only, then cold and warm on a fresh memo
      directory (kernels, stencils and feasibility equal to the bit); (f)
-     each step a profiling.stage, and PROFILE.report().
+     each step a profiling.stage, and PROFILE.report();
+ 16. the host runtime and multi-process planning: (a) the C++ host
+     runtime (svsdf_tpu_torch/csrc/runtime.cpp) built with g++ into
+     build/kernels/ (runtime_build: seconds, available, which must be
+     true); A* natively and in Python on the maps of phase 9's five
+     synthetic Planners and the reference-size forest Planner (sdHeart,
+     21x21 kernels, 18 yaw bins) at every guard of their ladders, the
+     same cells, bins and expansions (runtime_astar: ms of each route);
+     phase 7's forest cloud voxelized natively and with numpy, marching
+     squares of phase 11's field natively and in Python, esdf2d against
+     ops/esdf.py on the card (runtime_host_loops); (b) generate_path of
+     every Planner of phases 9, 12, 13 and 14d (which plan with native A*
+     by default) natively and with the Python loop, the same result
+     (runtime_planner_front: the seconds of each); (c) sharded_plan_batch
+     on phase 4's problem at default_stages(40)'s fast stage (bfloat16,
+     K=96, 40 iterations, 2 line-search steps) in two-rank gloo worlds
+     with both ranks on the card (parallel/local_world.py, a time limit
+     after which every rank is killed) at mesh (2, 1) and (1, 2), and
+     sharded_plan_batch_e2e at (2, 1) on phase 6's forest problem, and at
+     (1, 2) the solve again at tests/test_parallel.py's setting (float32,
+     15 iterations, 4 line-search steps), each against the same call in
+     this process (sharded_single_process, with each solve's median moved
+     by one ulp of x0 beside): (2, 1) no all_reduce and the solve's every
+     lane to the bit, the e2e run's front end and median cost within 2e-3
+     (the card's torch.cumsum sums a long row in another order at another
+     row count, so lanes move); (1, 2) the first evaluation within 1e-6,
+     as many all_reduce calls on each rank and the same results on both,
+     and at tests/test_parallel.py's setting the median cost within 2e-3
+     (sharded: wall s of each rank, plans/s, all_reduce calls a solve,
+     the medians and the lanes within 2e-3), rank 0's kernel held bit for
+     bit at every shape it launched (path_scans); (d)
+     sharded_value_and_grad at mesh (1, 1) in an NCCL world of one rank,
+     equal to make_cost_fn and its gradient to the bit, and an NCCL
+     all_reduce of them (sharded_nccl).
 The disk memo's root is a fresh temporary directory for the whole run.
 Every line carries elapsed_s, the seconds since the script started.
 Phase 3's parity cases cover every body, the ten of phase 10 included,
 each bit for bit, and time each body at 512x64x96 against its bound.
 The coarse-scan launches are counted over each path (phases 4, 6, 7, 9,
-each solve of 10, 11, 12, 13, each path of 14 and 15) from 0, in all and by
+each solve of 10, 11, 12, 13, each path of 14 and 15, each rank's run of
+16) from 0, in all and by
 form, and after
 each path the kernel is held bit for bit against its plain version, on
 seeded inputs (and seeded pose times for a deformable robot), at every
@@ -585,6 +619,415 @@ def timed(torch, fn):
 def rel_diff(a, b):
     """max |a - b| / max(1, |b|) over the elements."""
     return float(((a - b).abs() / b.abs().clamp_min(1.0)).max())
+
+
+#: phase 16's sharded solve: phase 4's problem at the fast stage of
+#: default_stages(40) (bfloat16 scans, K=96), 40 iterations, 2 line-search
+#: steps
+SHARDED = dict(n=8, m_obs=64, batch=512, iters=40, ls=2)
+#: the runs of each two-rank world's mesh: "solve" at SHARDED's settings,
+#: "solve_jax" at tests/test_parallel.py:143-157's (float32 scans, 15
+#: iterations, 4 line-search steps), "e2e" sharded_plan_batch_e2e
+SHARDED_RUNS = {(2, 1): ("solve", "e2e"), (1, 2): ("solve", "solve_jax")}
+#: the settings (scan type, iterations, line-search steps) of each solve
+SOLVE_SETTINGS = {"solve": ("bfloat16", SHARDED["iters"], SHARDED["ls"]),
+                  "solve_jax": (None, 15, 4)}
+#: one rank's job, and every rank's, under one time limit (seconds)
+RANK_TIMEOUT = 420
+
+
+class CountAllReduce:
+    """Counts torch.distributed.all_reduce calls while active."""
+
+    def __init__(self):
+        import torch.distributed as dist
+        self.dist, self.calls = dist, 0
+
+    def __enter__(self):
+        self._orig = self.dist.all_reduce
+
+        def counted(*a, **k):
+            self.calls += 1
+            return self._orig(*a, **k)
+        self.dist.all_reduce = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.dist.all_reduce = self._orig
+
+
+def sharded_inputs():
+    """Phase 4's problem (numpy) and the sharded solve's settings."""
+    from svsdf_tpu_torch.bench import BENCH_MEM_SIZE, problem
+    from svsdf_tpu_torch.models import shapes
+    from svsdf_tpu_torch.parallel import batch as pb
+    from svsdf_tpu_torch.utils.config import PlannerConfig
+    return (shapes.make_shape("sdHeart"), PlannerConfig(mem_size=BENCH_MEM_SIZE),
+            pb.default_stages(SHARDED["iters"])[0][0],
+            problem(SHARDED["n"], SHARDED["m_obs"], SHARDED["batch"]))
+
+
+def e2e_inputs(e2e):
+    """Phase 6's forest problem: seeded start/goal draws, its stages."""
+    import numpy as np
+    from svsdf_tpu_torch.bench import e2e_draws
+    from svsdf_tpu_torch.parallel import batch as pb
+    s, g = e2e_draws(e2e.cells, SHARDED["batch"], np.random.default_rng(16))
+    return (s, g, pb.default_stages(SHARDED["iters"]), 8, 48,
+            e2e.grid.resolution, e2e.grid.xyz_min[:2].astype(np.float32))
+
+
+def solve_call(pb, mesh, name, inputs):
+    """sharded_plan_batch at ``name``'s SOLVE_SETTINGS on ``mesh``:
+    (its SVSDF stage, a call of the whole batch)."""
+    import dataclasses
+    heart, cfg, fast, (h, tl, obs, x0) = inputs
+    dtype, iters, ls = SOLVE_SETTINGS[name]
+    svs = dataclasses.replace(fast, scan_dtype=dtype)
+    run = pb.sharded_plan_batch(heart, mesh, cfg, svs, SHARDED["n"], iters,
+                                ls)
+    return svs, lambda x=x0: run(x, h, tl, obs)
+
+
+def sharded_rank(n_scn, n_obs, runs):
+    """Phase 16 (c), one rank of a two-rank gloo world on the card (both
+    ranks on cuda:0) at mesh (n_scn, n_obs): each of ``runs``, a solve
+    (SOLVE_SETTINGS) of phase 4's problem after its first cost evaluation,
+    or "e2e", sharded_plan_batch_e2e on phase 6's forest problem; each
+    run's wall seconds, all_reduce calls and launches by form, its outputs
+    gathered to numpy, and on rank 0 the kernel held against the plain
+    scan at every shape the rank launched."""
+    import torch
+    import torch.distributed as dist
+    from svsdf_tpu_torch.ops import cuda_svsdf as cs
+    from svsdf_tpu_torch.parallel import batch as pb
+    from svsdf_tpu_torch.parallel import multihost as mh
+
+    inputs = sharded_inputs()
+    heart, cfg, _, (h, tl, obs, x0) = inputs
+    mesh = pb.make_mesh(n_scn, n_obs)
+    out = {"rank": dist.get_rank(), "coords": mesh.coords}
+    for i, name in enumerate(runs):
+        if name == "e2e":
+            from svsdf_tpu_torch.bench import e2e_setup
+            setup = e2e_setup()
+            s, g, stages, n_e, obs_e, res_e, xy_e = e2e_inputs(setup)
+            run = pb.sharded_plan_batch_e2e(setup.shape, mesh, cfg, stages,
+                                            n_e, obs_e, res_e, xy_e)
+            call = lambda: run(setup.feas, setup.occ_pts, s, g)  # noqa: E731
+            f0 = None
+        else:
+            svs, call = solve_call(pb, mesh, name, inputs)
+            f0 = mh.fetch_global(pb.sharded_value_and_grad(
+                heart, mesh, cfg, svs, SHARDED["n"])(x0, h, tl, obs)[0], mesh)
+        mh.barrier()
+        cs.reset_launches()
+        with ShapeLog(cs) as log, CountAllReduce() as c:
+            res, wall = timed(torch, call)
+        row = {"wall_s": wall, "all_reduce": c.calls, "f0": f0,
+               "form_launches": dict(cs.coarse_scan.form_launches),
+               "shapes": log.summary()}
+        fields = (res._asdict() if hasattr(res, "_asdict") else
+                  dict(zip(("x", "cost", "iters", "converged"), res)))
+        row.update({k: mh.fetch_global(v, mesh) for k, v in fields.items()})
+        if dist.get_rank() == 0:
+            row["max_abs_err"] = log.check(
+                torch, f"sharded {name} {n_scn}x{n_obs}", 16000 + 100 * i)
+            row["worst"] = dict(ShapeLog.worst)
+        out[name] = row
+    return out
+
+
+def nccl_rank():
+    """Phase 16 (d), a world of one rank on NCCL: sharded_value_and_grad at
+    mesh (1, 1) against make_cost_fn and its gradient, and an NCCL
+    all_reduce of them, each to the bit."""
+    import torch
+    import torch.distributed as dist
+    from svsdf_tpu_torch import convert
+    from svsdf_tpu_torch.parallel import batch as pb
+    from svsdf_tpu_torch.planner import back_end
+    from svsdf_tpu_torch.utils import lbfgs
+
+    heart, cfg, fast, (h, tl, obs, x0) = sharded_inputs()
+    mesh = pb.make_mesh(1, 1, device="cuda")
+    f, g = pb.sharded_value_and_grad(heart, mesh, cfg, fast, SHARDED["n"])(
+        x0, h, tl, obs)
+    prob, x = convert.problem_from_numpy(h, tl, obs, x0)
+    fr, gr = lbfgs.value_and_grad(back_end.make_cost_fn(
+        heart, prob, cfg, fast, SHARDED["n"]))(x)
+    buf = torch.cat([f[:, None], g], 1)
+    red = buf.clone()
+    dist.all_reduce(red)
+    torch.cuda.synchronize()
+    return {"backend": dist.get_backend(), "world": dist.get_world_size(),
+            "f_equal": bool(torch.equal(f, fr)),
+            "g_equal": bool(torch.equal(g, gr)),
+            "all_reduce_equal": bool(torch.equal(red, buf))}
+
+
+def same_segments(a, b, atol):
+    """Whether two marching-squares outputs hold the same segments as
+    unordered sets (a one-to-one nearest match, endpoints within atol)."""
+    import numpy as np
+
+    def canon(segs):
+        rows = [np.concatenate([p, q] if tuple(p) <= tuple(q) else [q, p])
+                for p, q in ((np.asarray(u, float), np.asarray(v, float))
+                             for u, v in segs)]
+        return np.asarray(rows).reshape(-1, 4)
+
+    ca, cb = canon(a), canon(b)
+    if ca.shape != cb.shape:
+        return False, float("inf")
+    worst, used = 0.0, set()
+    order = np.lexsort(cb.T[::-1])
+    cb_sorted = cb[order]
+    for row in ca:
+        # candidates near this row's first coordinate
+        lo = np.searchsorted(cb_sorted[:, 0], row[0] - atol, "left")
+        hi = np.searchsorted(cb_sorted[:, 0], row[0] + atol, "right")
+        d = np.abs(cb_sorted[lo:hi] - row).max(-1) if hi > lo else []
+        if not len(d):
+            return False, float("inf")
+        j = int(np.argmin(d))
+        worst = max(worst, float(d[j]))
+        used.add(lo + j)
+    return len(used) == len(ca) and worst <= atol, worst
+
+
+def runtime_phase(torch, astar_cases, forest_map, forest_ends, field_case):
+    """Phase 16 (a) and (b): the C++ host runtime built and held against
+    the host's Python and numpy versions, and the Planners of phases 9,
+    12, 13 and 14d on native A* against the Python loop."""
+    import numpy as np
+    from svsdf_tpu_torch import native
+    from svsdf_tpu_torch.ops import esdf as esdf_ops
+    from svsdf_tpu_torch.planner import astar
+    from svsdf_tpu_torch.planner.pipeline import Planner
+    from svsdf_tpu_torch.utils.config import PlannerConfig
+    from svsdf_tpu_torch.utils.gridmap import GridMap
+    from svsdf_tpu_torch.viz import swept_surface as sw
+
+    t0 = time.perf_counter()
+    lib, log = native.build()
+    build_s = time.perf_counter() - t0
+    if not native.available():
+        raise AssertionError(f"native runtime unavailable: "
+                             f"{native.build_log()}")
+    say("runtime_build", seconds=build_s, available=True,
+        library=os.path.relpath(lib, ROOT), compiler_log=log.strip())
+
+    def same(a, b):
+        return (a.success == b.success and a.expansions == b.expansions
+                and np.array_equal(a.path, b.path)
+                and np.array_equal(a.yaw_bins, b.yaw_bins))
+
+    def astar_both(label, grid, feas, trans, start, goal, k):
+        args = (grid, feas, trans, np.asarray(start), np.asarray(goal), k)
+        cc, cc_s = timed(torch, lambda: astar.search(*args, use_native=True))
+        py, py_s = timed(torch, lambda: astar.search(*args,
+                                                     use_native=False))
+        if not same(cc, py):
+            raise AssertionError(f"{label}: native A* differs from the "
+                                 "Python loop")
+        return dict(success=cc.success, cells=len(cc.path),
+                    expansions=cc.expansions, native_ms=cc_s * 1e3,
+                    python_ms=py_s * 1e3)
+
+    # (a) A* on the five synthetic maps and the reference-size forest map
+    rows = []
+    planners = [(label, pl, sc.start, sc.goal) for label, pl, sc
+                in astar_cases if label.startswith("synthetic_")]
+    forest = Planner(PlannerConfig(), forest_map)
+    planners.append(("forest_sdHeart", forest,
+                     np.r_[forest_ends[0], 0.0], np.r_[forest_ends[1], 0.0]))
+    for label, pl, start, goal in planners:
+        for guard in pl.guard_ladder:
+            rows.append(dict(map=label, kernel=int(pl._kernels.shape[-1]),
+                             yaw_bins=int(pl.feas.shape[0]), guard=guard,
+                             **astar_both(label, pl.grid, pl.feas,
+                                          pl._trans_feas(guard), start, goal,
+                                          pl.config.kernel_yaw_num)))
+    say("runtime_astar", maps=len(planners), searches=rows)
+    # voxelization of phase 7's forest cloud
+    pts = np.asarray(forest_map, np.float64)
+    g_cc, cc_s = timed(torch, lambda: GridMap.from_points(pts, 1.0, 1))
+    with mock.patch.object(native, "available", lambda: False):
+        g_py, py_s = timed(torch, lambda: GridMap.from_points(pts, 1.0, 1))
+    if not np.array_equal(g_cc.occ, g_py.occ):
+        raise AssertionError("native voxelization differs from numpy")
+    # marching squares on the grid query's field (phase 11)
+    xs, ys, field = field_case
+    seg_cc, mcc_s = timed(torch, lambda: sw.marching_squares(xs, ys, field))
+    with mock.patch.object(native, "available", lambda: False):
+        seg_py, mpy_s = timed(torch, lambda: sw.marching_squares(xs, ys,
+                                                                 field))
+    seg_ok, seg_err = same_segments(seg_cc, seg_py, 1e-5)
+    if not (seg_ok and len(seg_cc) > 0):
+        raise AssertionError(f"native marching squares differs: "
+                             f"{len(seg_cc)} vs {len(seg_py)}, {seg_err}")
+    # the 2-D ESDF against ops/esdf.py on the card
+    occ2d = g_cc.occ2d
+    d_cc, ecc_s = timed(torch, lambda: native.esdf2d(occ2d, 1.0))
+    d_dev, edev_s = timed(torch, lambda: esdf_ops.esdf(occ2d[..., None],
+                                                       1.0)[..., 0])
+    esdf_err = float(np.abs(d_cc - d_dev.cpu().numpy()).max())
+    if not esdf_err <= 1e-4:
+        raise AssertionError(f"native esdf2d vs ops/esdf.py {esdf_err}")
+    say("runtime_host_loops", voxelize=dict(
+            points=len(pts), grid=list(g_cc.occ.shape), equal=True,
+            native_ms=cc_s * 1e3, numpy_ms=py_s * 1e3),
+        marching_squares=dict(field=list(field.shape),
+                              segments=len(seg_cc), same_segments=True,
+                              max_endpoint_diff=seg_err,
+                              native_ms=mcc_s * 1e3, python_ms=mpy_s * 1e3),
+        esdf2d=dict(grid=list(occ2d.shape), max_abs_err_vs_card=esdf_err,
+                    native_ms=ecc_s * 1e3, card_ms=edev_s * 1e3))
+
+    # (b) the Planners of phases 9, 12, 13, 14d: native A* by default
+    fronts = []
+    for label, pl, sc in astar_cases:
+        cc, cc_s = timed(torch, lambda: pl.generate_path(sc.start, sc.goal))
+        with mock.patch.object(native, "available", lambda: False):
+            py, py_s = timed(torch, lambda: pl.generate_path(sc.start,
+                                                             sc.goal))
+        if not same(cc, py):
+            raise AssertionError(f"{label}: the Planner's native A* differs "
+                                 "from the Python loop")
+        fronts.append(dict(planner=label, front_native_s=cc_s,
+                           front_python_s=py_s, cells=len(cc.path),
+                           expansions=cc.expansions))
+    say("runtime_planner_front", planners=fronts)
+    return {"astar": rows, "fronts": fronts}
+
+
+def sharded_phase(torch, e2e):
+    """Phase 16 (c) and (d): the two-rank gloo worlds on the card against
+    the same calls in this process, and NCCL in a world of one. Returns
+    the worlds' launches by (path, form)."""
+    import numpy as np
+    from svsdf_tpu_torch.parallel import batch as pb
+    from svsdf_tpu_torch.parallel import local_world
+
+    inputs = sharded_inputs()
+    heart, cfg, _, (h, tl, obs, x0) = inputs
+    batch = SHARDED["batch"]
+    mesh1 = pb.make_mesh(1, 1)
+    # the same calls in one process on the same card, each run twice (a
+    # warm-up), and the solves once more from x0 moved up by one ulp: how
+    # far a rounding-sized change of the input moves each solve's median
+    refs = {}
+    for name in SOLVE_SETTINGS:
+        svs, call = solve_call(pb, mesh1, name, inputs)
+        f0 = pb.sharded_value_and_grad(heart, mesh1, cfg, svs, SHARDED["n"])(
+            x0, h, tl, obs)[0].cpu()
+        call()
+        res, wall = timed(torch, call)
+        ulp = call(np.nextafter(x0, np.float32(np.inf)))[1].cpu()
+        cost = res[1].cpu()
+        refs[name] = dict(f0=f0, cost=cost, x=res[0].cpu(), wall_s=wall,
+                          ulp_median_rel=abs(float(ulp.median())
+                                             - float(cost.median()))
+                          / abs(float(cost.median())))
+    s, g, stages, n_e, obs_e, res_e, xy_e = e2e_inputs(e2e)
+    run_e2e = pb.sharded_plan_batch_e2e(e2e.shape, mesh1, cfg, stages, n_e,
+                                        obs_e, res_e, xy_e)
+    run_e2e(e2e.feas, e2e.occ_pts, s, g)
+    res, wall = timed(torch, lambda: run_e2e(e2e.feas, e2e.occ_pts, s, g))
+    refs["e2e"] = dict(f0=None, cost=res.cost.cpu(), x=res.x.cpu(),
+                       front_ok=res.front_ok.cpu(), wall_s=wall,
+                       ulp_median_rel=None)
+    say("sharded_single_process", B=batch, runs={
+        k: dict(wall_s=v["wall_s"], plans_per_s=batch / v["wall_s"],
+                median_cost=float(v["cost"].median()),
+                ulp_moved_median_rel=v["ulp_median_rel"])
+        for k, v in refs.items()})
+
+    launches = {}
+    for (n_scn, n_obs), runs in SHARDED_RUNS.items():
+        t0 = time.perf_counter()
+        ranks = local_world.run(
+            2, "chip_smoke.py:sharded_rank",
+            dict(n_scn=n_scn, n_obs=n_obs, runs=runs), backend="gloo",
+            device="cuda", timeout=RANK_TIMEOUT)
+        world_s = time.perf_counter() - t0
+        tag = f"{n_scn}x{n_obs}"
+        for name in runs:
+            rs = [r[name] for r in ranks]
+            got, ref = rs[0], refs[name]
+            if not all(np.array_equal(r["x"], got["x"]) for r in rs[1:]):
+                raise AssertionError(f"{tag} {name}: the ranks gather "
+                                     "different results")
+            cost = torch.as_tensor(got["cost"])
+            lanes_differ = int((cost != ref["cost"]).sum())
+            bitwise = bool(lanes_differ == 0
+                           and np.array_equal(got["x"], ref["x"].numpy()))
+            median_rel = abs(float(cost.median()) - float(
+                ref["cost"].median())) / abs(float(ref["cost"].median()))
+            lane_rel = ((cost - ref["cost"]).abs()
+                        / ref["cost"].abs()).numpy()
+            first = (None if got["f0"] is None else rel_diff(
+                torch.as_tensor(got["f0"]), ref["f0"]))
+            calls = [r["all_reduce"] for r in rs]
+            if n_obs == 1 and any(calls):
+                raise AssertionError(f"{tag} {name}: all_reduce {calls} "
+                                     "with nothing to reduce")
+            if n_obs == 1 and name != "e2e" and not bitwise:
+                # scenarios split: nothing is reassociated
+                raise AssertionError(f"{tag} {name}: {lanes_differ} lanes "
+                                     "differ from the single process")
+            if name == "e2e" and not (
+                    np.array_equal(got["front_ok"], ref["front_ok"].numpy())
+                    and median_rel <= 2e-3):
+                # torch.cumsum on the card sums a row of >= 300 entries in
+                # another order at 256 rows than at 512 (the front end's
+                # arc lengths): the states move by ulps, some lanes'
+                # solves with them
+                raise AssertionError(f"{tag} e2e: median cost {median_rel}")
+            if n_obs > 1 and not (first <= 1e-6 and calls[0] == calls[1] > 0):
+                raise AssertionError(f"{tag} {name}: first evaluation "
+                                     f"{first}, all_reduce {calls}")
+            if name == "solve_jax" and not median_rel <= 2e-3:
+                raise AssertionError(f"{tag} {name}: median cost "
+                                     f"{median_rel}")
+            for r in rs:
+                for fm, k in r["form_launches"].items():
+                    key = (f"sharded_{name}_{tag}", fm)
+                    launches[key] = launches.get(key, 0) + k
+            if sum(sum(r["form_launches"].values()) for r in rs) <= 0:
+                raise AssertionError(f"{tag} {name}: no coarse-scan launch")
+            walls = [r["wall_s"] for r in rs]
+            say("sharded", mesh=tag, run=name, settings=SOLVE_SETTINGS.get(
+                    name, "default_stages(40)"), ranks=2, backend="gloo",
+                device="cuda:0 (both ranks)", B=batch, wall_s=walls,
+                plans_per_s=batch / max(walls),
+                single_process_wall_s=ref["wall_s"],
+                all_reduce_per_solve=calls, first_eval_rel=first,
+                median_cost=float(cost.median()),
+                single_process_median_cost=float(ref["cost"].median()),
+                median_rel=median_rel,
+                ulp_moved_median_rel=ref["ulp_median_rel"],
+                lanes_differ=lanes_differ,
+                lanes_within_2e3=float((lane_rel <= 2e-3).mean()),
+                bitwise_with_single_process=bitwise,
+                form_launches=[r["form_launches"] for r in rs],
+                world_s=world_s)
+            say("path_scans", path=f"sharded {name} {tag} (rank 0)",
+                shapes=got["shapes"], max_abs_err=got["max_abs_err"],
+                bitwise=True)
+            for entry, err in got["worst"].items():
+                ShapeLog.worst[entry] = max(ShapeLog.worst.get(entry, 0.0),
+                                            err)
+    # (d) NCCL in a world of one
+    t0 = time.perf_counter()
+    (nccl,) = local_world.run(1, "chip_smoke.py:nccl_rank", {}, backend="nccl",
+                              device="cuda", timeout=RANK_TIMEOUT)
+    if not (nccl["backend"] == "nccl" and nccl["f_equal"] and nccl["g_equal"]
+            and nccl["all_reduce_equal"]):
+        raise AssertionError(f"NCCL world of one: {nccl}")
+    say("sharded_nccl", world_s=time.perf_counter() - t0, **nccl)
+    return launches
 
 
 def deployment_loop(torch, rp, sc, fleet, scene, memo_cases, dev,
@@ -1326,6 +1769,7 @@ def main() -> int:
         pair = e2e.cells[np.random.default_rng(0).integers(
             0, len(e2e.cells), 2)]
         start_f, goal_f = (e2e.grid.xyz_min[:2] + (pair + 0.5) * res_e)
+        forest_ends = (start_f, goal_f)           # phase 16's A* runs here
         r, nr = replan_once(rp, "forest_sdHeart", start_f, goal_f, product,
                             solves)
         forest_traj = r.traj                  # phase 15 senses along it
@@ -1429,12 +1873,15 @@ def main() -> int:
                                        hi * rec["final_cost"]])
 
     first_plans = {}
+    # the Planners of phases 9, 12, 13 and 14d, whose A* phase 16 holds
+    astar_cases = []
     cs.reset_launches()
     with ShapeLog(cs) as plan_log:
         for name in fixtures.list_synthetic_scenarios():
             sc = fixtures.synthetic_scenario(name)
             planner, build_s = timed(torch, lambda: Planner(
                 sc.config, sc.map_points, svs_cfg=svs_rs))
+            astar_cases.append((sc.name, planner, sc))
             rec = recorded[sc.name]
             runs = []
             # a first plan, then on Circle (a back end runs) a warm one.
@@ -1531,6 +1978,8 @@ def main() -> int:
         raise AssertionError(f"grid query field: shape {tuple(field.shape)}, "
                              f"max abs err vs host float64 {grid_err}")
     grid_wall = statistics.median(walls)
+    grid_field = (gq.xs.cpu().numpy(), gq.ys.cpu().numpy(),
+                  field[0].cpu().numpy())
     say("grid_query", points=n_grid, batches_per_run=grid_batches,
         coarse_n=svs_grid.coarse_n, refine_rounds=svs_grid.refine_rounds,
         wall_s=walls, queries_per_s=grid_batches * n_grid / grid_wall,
@@ -1546,6 +1995,7 @@ def main() -> int:
             sc = fixtures.deformable_scenario(name)
             planner, build_s = timed(torch, lambda: Planner(
                 sc.config, sc.map_points, svs_cfg=svs_rs, shape=sc.shape))
+            astar_cases.append((sc.name, planner, sc))
             rec = recorded[sc.name]
             res, plan_s, goal_err = gated_plan(planner, sc, rec)
             say("deformable", scenario=sc.name, build_s=build_s,
@@ -1587,6 +2037,7 @@ def main() -> int:
         sc = fixtures.synthetic_scenario("Circle")
         planner = Planner(sc.config, sc.map_points, svs_cfg=svs_rs,
                           solver="lmbm")
+        astar_cases.append((f"lmbm {sc.name}", planner, sc))
         rec = recorded[sc.name]
         res, plan_s, goal_err = gated_plan(planner, sc, rec)
     if not res.timings["back_s"] > 0.0:
@@ -1671,6 +2122,7 @@ def main() -> int:
             cyl_cfg, sc.map_points, svs_cfg=svs_rs))
         if planner.shape.name != mesh["cylinder"].name:
             raise AssertionError(f"the planner's robot is {planner.shape.name}")
+        astar_cases.append((f"mesh {sc.name}", planner, sc))
         rec = recorded[sc.name]
         res, plan_s, goal_err = gated_plan(planner, sc, rec)
     mesh_plan_launches = cs.coarse_scan.launches
@@ -1806,6 +2258,14 @@ def main() -> int:
         form_launches=deploy_by_form)
     deploy_log.check(torch, "deployment", seed=9500)
 
+    # -- 16. the host runtime, multi-process planning ------------------
+    runtime_phase(torch, astar_cases, forest_map, forest_ends, grid_field)
+    sharded_launches = sharded_phase(torch, e2e)
+
+    def sharded_by_path(form):
+        return {path: k for (path, fm), k in sharded_launches.items()
+                if fm == form and k > 0}
+
     def kernel_entry(form, launches_, t, **extra):
         """The kernel table's entry of one form, timed at ``t``."""
         return {"name": "svsdf_coarse_scan" + (
@@ -1834,7 +2294,8 @@ def main() -> int:
                               "staged_bodies": body_launches,
                               "grid": grid_launches,
                               "lmbm_planner": lmbm_launches,
-                              "deployment": deploy_by_form["float32"]},
+                              "deployment": deploy_by_form["float32"],
+                              **sharded_by_path("float32")},
             shapes_ran={"main": main_log.summary("float32"),
                         "e2e": e2e_log.summary("float32"),
                         "e2e_float32": e2e_f32_log.summary("float32"),
@@ -1853,7 +2314,8 @@ def main() -> int:
             launches_by_path={"main": bf16_launches,
                               "e2e": e2e_by_form["bfloat16"],
                               "replan": replan_by_form["bfloat16"],
-                              "deployment": deploy_by_form["bfloat16"]},
+                              "deployment": deploy_by_form["bfloat16"],
+                              **sharded_by_path("bfloat16")},
             shapes_ran={"main": bf16_log.summary("bfloat16"),
                         "e2e": e2e_log.summary("bfloat16"),
                         "replan": replan_log.summary("bfloat16"),

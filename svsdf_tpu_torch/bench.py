@@ -147,7 +147,9 @@ def write_prism_obj(name: str, path: str, extent: float = 6.0) -> str:
     gx, gy = np.meshgrid(ax, ax, indexing="ij")
     sdf = shapes.make_shape(name).sdf_xy(torch.as_tensor(gx),
                                          torch.as_tensor(gy)).numpy()
-    segs = np.asarray(marching_squares(ax, ax, sdf))         # (S, 2, 2)
+    # the Python loop on the float64 field: the native route rounds the
+    # field to float32, and the prism's vertices are the mesh robots'
+    segs = np.asarray(marching_squares(ax, ax, sdf, use_native=False))
     c = segs.reshape(-1, 2).mean(axis=0)
     a, b = segs[:, 0] - c, segs[:, 1] - c
     ccw = a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0] > 0.0

@@ -9,7 +9,7 @@ separable squared-distance transform is the exact brute-force minimum
 over one axis, as one dense (..., n, n) tensor: O(n^2) per axis, fully
 parallel, and exact for any seed. ``esdf`` returns the reference's signed
 field: positive distance outside obstacles, negative inside, in world
-units.
+units; ``interp_sdf`` reads it trilinearly at world points.
 """
 
 from __future__ import annotations
@@ -77,3 +77,34 @@ def esdf_with_grad(occ, resolution: float, device=None,
         shape[axis] = -1
         grads.append((fp - fm) / (denom.reshape(shape) * resolution))
     return f, torch.stack(grads, dim=-1)
+
+
+def interp_sdf(field, xyz_min, resolution, points):
+    """Trilinear interpolation of a 3-D SDF grid (X, Y, Z) at world points
+    (..., 3) (getSDFValue, GridMap3D.h:55-88): one value per point, so a
+    single point (3,) gives a 0-D tensor. Runs where ``field`` lies and
+    is differentiable in ``points`` (GridMap.sdf_value_with_grad)."""
+    field = torch.as_tensor(field)
+    dt, dev = field.dtype, field.device
+    pts = torch.as_tensor(points, dtype=dt, device=dev)
+    rel = (pts - torch.as_tensor(xyz_min, dtype=dt, device=dev)) \
+        / resolution - 0.5
+    hi = torch.as_tensor(field.shape, device=dev) - 2
+    lo = torch.minimum(torch.maximum(torch.floor(rel).long(),
+                                     torch.zeros_like(hi)), hi)
+    # clip as JAX's jnp.clip: max then min, so a point on a cell face
+    # takes half of each side's gradient, as jax.grad does
+    zero = torch.zeros((), dtype=dt, device=dev)
+    frac = torch.minimum(torch.maximum(rel - lo.to(dt), zero), zero + 1.0)
+    fx, fy, fz = frac[..., 0], frac[..., 1], frac[..., 2]
+
+    def at(dx, dy, dz):
+        return field[lo[..., 0] + dx, lo[..., 1] + dy, lo[..., 2] + dz]
+
+    c00 = at(0, 0, 0) * (1 - fx) + at(1, 0, 0) * fx
+    c10 = at(0, 1, 0) * (1 - fx) + at(1, 1, 0) * fx
+    c01 = at(0, 0, 1) * (1 - fx) + at(1, 0, 1) * fx
+    c11 = at(0, 1, 1) * (1 - fx) + at(1, 1, 1) * fx
+    c0 = c00 * (1 - fy) + c10 * fy
+    c1 = c01 * (1 - fy) + c11 * fy
+    return c0 * (1 - fz) + c1 * fz

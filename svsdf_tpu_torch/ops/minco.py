@@ -7,9 +7,14 @@ C^4-continuity system for the coefficients. The hot path assembles the
 system in per-piece normalized time (entries scale as duration ratios,
 not T^5) in band storage and solves it with block cyclic reduction
 (ops/block_cr.py); gradients to waypoints and durations come from
-autograd through the CR solve's ``autograd.Function``.
+autograd through the CR solve's ``autograd.Function``. ``solve_raw``
+solves the raw-time system (``build_bands``) by the same CR route, the
+JAX package's cross-check of the normalized assembly; ``solve_s`` and
+``energy_s`` are the general MINCO_S{s}NU family (s = 2, 3, 4) with a
+dense solve.
 
-Shapes: times (B, N), head/tail (B, 3, D), waypoints (B, N-1, D).
+Shapes: times (B, N), head/tail (B, 3, D) (``solve_s``: (B, s, D)),
+waypoints (B, N-1, D).
 """
 
 from __future__ import annotations
@@ -105,6 +110,50 @@ def build_system(times, head, tail, waypoints):
     return m.reshape(nb, 6 * n, 6 * n), rhs
 
 
+def _band_scatter(rows, cols, piece, power, coef, n):
+    """One-hot (6N*13, E) matrix mapping the E stencil values of an index
+    plan to flattened band storage, with the plan's piece, power, coef."""
+    diag = cols - rows + LBW
+    if not ((diag >= 0).all() and (diag < NDIAG).all()):
+        raise AssertionError("stencil leaves the band")
+    e = len(rows)
+    s = np.zeros((6 * n * NDIAG, e), np.float64)
+    flat = rows * NDIAG + diag
+    for k in range(e):
+        s[flat[k], k] += 1.0
+    return s, np.asarray(piece), np.asarray(power), \
+        np.asarray(coef, np.float64)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_tensors(n: int, norm: bool, dtype, device: str):
+    """The band scatter of the normalized (``norm``) or raw-time plan as
+    tensors on the solve's device (built once per (n, dtype, device), not
+    per cost evaluation)."""
+    plan = _index_plan_norm(n) if norm else _index_plan(n)
+    s, piece, power, coef = _band_scatter(*plan, n)
+    dev = torch.device(device)
+    return (torch.as_tensor(s.T, dtype=dtype, device=dev),
+            torch.as_tensor(piece, device=dev),
+            torch.as_tensor(power, device=dev),
+            torch.as_tensor(coef, dtype=dtype, device=dev))
+
+
+def build_bands(times, head, tail, waypoints):
+    """The raw-time system assembled directly in band storage (bandwidth
+    6, the structure the reference's BandedSystem exploits,
+    minco.hpp:43-198): bands (B, 6N, 13), rhs (B, 6N, D)."""
+    nb, n = times.shape
+    d = head.shape[-1]
+    dtype, dev = times.dtype, times.device
+    s_t, piece, power, coef = _plan_tensors(int(n), False, dtype, str(dev))
+    tp = torch.stack([ipow(times, k) for k in range(6)], dim=1)   # (B,6,N)
+    vals = coef * tp[:, power, piece]                             # (B, E)
+    bands = torch.matmul(vals, s_t).reshape(nb, 6 * n, NDIAG)
+    rhs = torch.zeros((nb, 6 * n, d), dtype=dtype, device=dev)
+    return bands, _set_rhs(rhs, head, tail, waypoints, n)
+
+
 @functools.lru_cache(maxsize=None)
 def _index_plan_norm(n: int):
     """Scatter plan of the per-piece normalized-time system: each piece
@@ -161,35 +210,6 @@ def _index_plan_norm(n: int):
             np.asarray(power), np.asarray(coef, dtype=np.float64))
 
 
-@functools.lru_cache(maxsize=None)
-def _band_scatter_matrix_norm(n: int):
-    """One-hot (6N*13, E) matrix mapping the E stencil values of the
-    normalized plan to flattened band storage."""
-    rows, cols, piece, power, coef = _index_plan_norm(n)
-    diag = cols - rows + LBW
-    if not ((diag >= 0).all() and (diag < NDIAG).all()):
-        raise AssertionError("stencil leaves the band")
-    e = len(rows)
-    s = np.zeros((6 * n * NDIAG, e), np.float64)
-    flat = rows * NDIAG + diag
-    for k in range(e):
-        s[flat[k], k] += 1.0
-    return s, np.asarray(piece), np.asarray(power), \
-        np.asarray(coef, np.float64)
-
-
-@functools.lru_cache(maxsize=None)
-def _norm_plan_tensors(n: int, dtype, device: str):
-    """_band_scatter_matrix_norm as tensors on the solve's device
-    (built once per (n, dtype, device), not per cost evaluation)."""
-    s, piece, power, coef = _band_scatter_matrix_norm(n)
-    dev = torch.device(device)
-    return (torch.as_tensor(s.T, dtype=dtype, device=dev),
-            torch.as_tensor(piece, device=dev),
-            torch.as_tensor(power, device=dev),
-            torch.as_tensor(coef, dtype=dtype, device=dev))
-
-
 def build_bands_norm(times, head, tail, waypoints):
     """Normalized-time system in band storage: bands (B, 6N, 13),
     rhs (B, 6N, D). The solution is the normalized coefficient vector
@@ -197,7 +217,7 @@ def build_bands_norm(times, head, tail, waypoints):
     nb, n = times.shape
     d = head.shape[-1]
     dtype, dev = times.dtype, times.device
-    s_t, piece, power, coef = _norm_plan_tensors(int(n), dtype, str(dev))
+    s_t, piece, power, coef = _plan_tensors(int(n), True, dtype, str(dev))
 
     rho = torch.cat([times[:, 1:] / times[:, :-1],
                      torch.ones((nb, 1), dtype=dtype, device=dev)], 1)
@@ -226,6 +246,16 @@ def solve(times, head, tail, waypoints) -> Trajectory:
     return Trajectory(coeffs=ch * tinv[..., None], durations=times)
 
 
+def solve_raw(times, head, tail, waypoints) -> Trajectory:
+    """The raw-time (unnormalized) system solved by block cyclic
+    reduction, the JAX package's ``SOLVER = "cr"`` route: the cross-check
+    of the normalized assembly."""
+    nb, n = times.shape
+    bands, rhs = build_bands(times, head, tail, waypoints)
+    c = banded_solve_cr(bands, rhs)
+    return Trajectory(coeffs=c.reshape(nb, n, 6, -1), durations=times)
+
+
 def solve_dense(times, head, tail, waypoints) -> Trajectory:
     """Dense torch.linalg.solve of the raw-time system (test oracle)."""
     nb, n = times.shape
@@ -251,3 +281,106 @@ def energy(traj: Trajectory):
                  720.0 * torch.sum(c5 * c4, -1) * t4 +
                  720.0 * torch.sum(c5 * c5, -1) * t5)
     return torch.sum(per_piece, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# General MINCO_S{s}NU: s = 2 (cubic, min-acc), 3 (quintic, min-jerk),
+# 4 (septic, min-snap), the family of minco.hpp (MINCO_S2NU :201,
+# MINCO_S3NU :397, MINCO_S4NU :658), assembled densely and solved with
+# torch.linalg.solve (not on the optimizer's path).
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _index_plan_s(n: int, s: int):
+    """Scatter plan of the 2sN x 2sN C^{2s-2} continuity system."""
+    nc = 2 * s                      # coefficients per piece
+    rows, cols, piece, power, coef = [], [], [], [], []
+
+    def add(r, c, i, k, a):
+        rows.append(r); cols.append(c); piece.append(i)
+        power.append(k); coef.append(a)
+
+    def dcoef(k, order):
+        a = 1.0
+        for j in range(order):
+            a *= (k - j)
+        return a
+
+    # head: derivatives 0..s-1 of piece 0 at local time 0
+    for o in range(s):
+        add(o, o, 0, 0, dcoef(o, o))
+
+    for i in range(n - 1):
+        r0 = nc * i + s
+        # high-order continuity: orders s..2s-2 (s-1 rows)
+        for idx, o in enumerate(range(s, 2 * s - 1)):
+            r = r0 + idx
+            for k in range(o, nc):
+                add(r, nc * i + k, i, k - o, dcoef(k, o))
+            add(r, nc * (i + 1) + o, i, 0, -dcoef(o, o))
+        # waypoint position row
+        r = r0 + (s - 1)
+        for k in range(nc):
+            add(r, nc * i + k, i, k, 1.0)
+        # low-order continuity: orders 0..s-1 (s rows)
+        for o in range(s):
+            r = r0 + s + o
+            for k in range(o, nc):
+                add(r, nc * i + k, i, k - o, dcoef(k, o))
+            add(r, nc * (i + 1) + o, i, 0, -dcoef(o, o))
+
+    # tail: derivatives 0..s-1 of piece n-1 at local time T
+    i = n - 1
+    for o in range(s):
+        r = nc * n - s + o
+        for k in range(o, nc):
+            add(r, nc * i + k, i, k - o, dcoef(k, o))
+
+    return (np.asarray(rows), np.asarray(cols), np.asarray(piece),
+            np.asarray(power), np.asarray(coef, dtype=np.float64))
+
+
+def solve_s(s: int, times, head, tail, waypoints) -> Trajectory:
+    """General MINCO solve of order s, batched: head/tail (B, s, D)
+    boundary derivative rows, waypoints (B, N-1, D). Returns a Trajectory
+    with 2s coefficients a piece."""
+    nb, n = times.shape
+    nc = 2 * s
+    d = head.shape[-1]
+    dtype, dev = times.dtype, times.device
+    rows, cols, piece, power, coef = _index_plan_s(n, s)
+    tp = torch.stack([ipow(times, k) for k in range(nc)], dim=1)  # (B,nc,N)
+    vals = (torch.as_tensor(coef, dtype=dtype, device=dev)
+            * tp[:, torch.as_tensor(power), torch.as_tensor(piece)])
+    flat = torch.as_tensor(rows * nc * n + cols, device=dev)
+    m = torch.zeros((nb, (nc * n) ** 2), dtype=dtype,
+                    device=dev).index_add(1, flat, vals)
+    rhs = torch.zeros((nb, nc * n, d), dtype=dtype, device=dev)
+    rhs[:, 0:s] = head
+    if n > 1:
+        wrows = torch.arange(n - 1, device=dev) * nc + s + (s - 1)
+        rhs[:, wrows] = waypoints
+    rhs[:, nc * n - s:] = tail
+    c = torch.linalg.solve(m.reshape(nb, nc * n, nc * n), rhs)
+    return Trajectory(coeffs=c.reshape(nb, n, nc, -1), durations=times)
+
+
+def energy_s(traj: Trajectory, s: int):
+    """Integral of the squared s-th derivative over each plan's
+    trajectory, (B,) (getEnergy of each MINCO family: minco.hpp:341,
+    536, 816)."""
+    coeffs = traj.coeffs
+    nc = coeffs.shape[2]
+    degs = np.arange(nc)
+    fac = np.ones(nc)
+    for j in range(s):
+        fac *= np.maximum(degs - j, 0)
+    dt, dev = coeffs.dtype, coeffs.device
+    d = coeffs * torch.as_tensor(fac, dtype=dt, device=dev)[:, None]
+    d = d[:, :, s:, :]                              # powers 0..nc-s-1
+    k = d.shape[2]
+    powers = np.arange(k)[:, None] + np.arange(k)[None, :] + 1
+    pw = torch.as_tensor(powers, dtype=dt, device=dev)
+    t = traj.durations[:, :, None, None] ** pw               # (B, N, k, k)
+    gram = torch.einsum("bnid,bnjd->bnij", d, d)
+    return torch.sum(gram * t / pw, dim=(1, 2, 3))

@@ -72,6 +72,16 @@ class SVSDFResult(NamedTuple):
     grad_world: torch.Tensor  # (B, M, 2) world-frame spatial gradient
 
 
+def sdf_at_time(shape, traj: trj.Trajectory, p_world, t):
+    """Robot SDF at world points for trajectory times t
+    (getSDFAtTimeStamp, sw_manager.hpp:738-752). t has the plan axis
+    first, (B, ...); p_world (B, ..., 2) broadcasts against it."""
+    t = torch.as_tensor(t, dtype=traj.coeffs.dtype, device=traj.coeffs.device)
+    xy, _, R = trj.state_se2(traj, t)
+    p_rel = trj.world_to_body(xy, R, p_world)
+    return shape.sdf_t(p_rel, t)
+
+
 class PoseTable(NamedTuple):
     """Trajectory poses at K shared time samples per plan."""
     ts: torch.Tensor      # (B, K)

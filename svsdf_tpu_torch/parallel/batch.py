@@ -1,12 +1,22 @@
-"""Scenario batching on one card (svsdf_tpu/parallel/batch.py, the
-single-chip part).
+"""Scenario batching on one card and sharded planning over ranks
+(svsdf_tpu/parallel/batch.py).
 
 ``plan_batch`` and ``plan_batch_staged`` solve B independent back-end
 problems in lockstep: the JAX package vmaps a per-plan solve, this
 module runs the batch-native solver of utils/lbfgs.py on (B, ...)
 tensors. ``plan_batch_e2e`` adds the device wavefront front end and the
 certify-and-refine rounds in front of and behind the same solve.
-Multi-device sharding is not ported yet.
+
+The sharded functions (``make_mesh``, ``sharded_value_and_grad``,
+``sharded_plan_batch``, ``sharded_step``, ``sharded_plan_batch_e2e``)
+are the JAX package's ``shard_map`` solves over a (scn, obs) mesh of
+``torch.distributed`` ranks (parallel/multihost.py): scenarios are split
+over the scn axis, each scenario's obstacle points over the obs axis,
+and the partial costs and gradients of an obs row are summed by an
+``all_reduce`` inside every cost evaluation (the reference's
+omp-critical gradient merge, back_end_optimizer.hpp:855-863). Each
+takes the whole batch, held by every rank, and returns the rank's
+scenario slice (``multihost.fetch_global`` gathers it).
 """
 
 from __future__ import annotations
@@ -17,11 +27,13 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from svsdf_tpu_torch import resolve_device
 from svsdf_tpu_torch.ops import minco
 from svsdf_tpu_torch.ops.svsdf import (SVSDFConfig, linspace, linspace_1d,
                                        svsdf_query)
+from svsdf_tpu_torch.parallel import multihost
 from svsdf_tpu_torch.planner import back_end, wavefront
 from svsdf_tpu_torch.utils import lbfgs
 from svsdf_tpu_torch.utils import trajectory as trj
@@ -485,3 +497,146 @@ def plan_batch_e2e(shape, feas, occ_pts, starts_ij, goals_ij,
                            with_inside=False).sdf.amin(dim=1)
     return E2EBatchResult(ok, x, cost, cert, head, tail, obs, traj.coeffs,
                           traj.durations)
+
+
+# ---------------------------------------------------------------------------
+# sharded planning over a (scn, obs) mesh of ranks
+# ---------------------------------------------------------------------------
+
+def make_mesh(n_scn: int, n_obs: int, device=None) -> multihost.RankMesh:
+    """A (scn, obs) mesh of the job's ranks, obs innermost. n_scn * n_obs
+    must be the job's rank count (1 x 1 in a single process): a process
+    is one device, where the JAX package may take the first n_scn * n_obs
+    of a process's several devices. ``device=None`` is the rank's CUDA
+    device (raises without a card)."""
+    return multihost.RankMesh(n_scn, n_obs, device=device)
+
+
+def _shard(mesh, x_b, head_b, tail_b, obs_b):
+    """This rank's block of the whole batch: its scenario slice, and of
+    each scenario's obstacles its obs shard (raises if a count does not
+    divide by its mesh axis)."""
+    scn = ("scn",)
+    return (multihost.global_batch_array(x_b, mesh, scn),
+            multihost.global_batch_array(head_b, mesh, scn),
+            multihost.global_batch_array(tail_b, mesh, scn),
+            multihost.global_batch_array(obs_b, mesh, ("scn", "obs")))
+
+
+def _local_cost(shape, cfg, svs_cfg, n, n_obs_shards, head, tail, obs):
+    """The rank's partial cost over its obstacle shard: the replicated
+    base term (energy + rho * sum(T)) divided by the obs-shard count plus
+    the shard's penalty, so that summing BOTH value and gradient over the
+    obs row gives the whole cost and its gradient (summing the value
+    alone leaves each rank with its own shard's penalty gradient). With
+    one shard it is ``back_end.make_cost_fn``, the same expression."""
+    prob = back_end.BackEndProblem(head, tail, obs)
+    if n_obs_shards == 1:
+        return back_end.make_cost_fn(shape, prob, cfg, svs_cfg, n)
+
+    def cost(x):
+        p = back_end._expand(prob, x.shape[0])
+        traj, times = back_end._traj(x, p, n)
+        pen, _ = back_end.svsdf_penalty(shape, traj, p.obstacles, cfg,
+                                        svs_cfg)
+        base = minco.energy(traj) + cfg.rho * torch.sum(times, -1)
+        return base / n_obs_shards + pen
+
+    return cost
+
+
+def _obs_reduced(vg, mesh):
+    """vg with f and g summed over the rank's obs row: one all_reduce of
+    [f, g] per evaluation. Every rank of the row then holds the same bits,
+    so the solver's host branches (done masks, line-search exits) agree
+    and the row's ranks call the all_reduce in lockstep. With one obs
+    shard there is nothing to reduce and no collective runs."""
+    if mesh.shape["obs"] == 1:
+        return vg
+    group = mesh.obs_group
+
+    def fun(x):
+        f, g = vg(x)
+        buf = torch.cat([f[:, None], g], dim=1).contiguous()
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+        return buf[:, 0], buf[:, 1:]
+
+    return fun
+
+
+def sharded_value_and_grad(shape, mesh, cfg: PlannerConfig,
+                           svs_cfg: SVSDFConfig, n: int):
+    """f(x_b, head_b, tail_b, obs_b) -> (cost, grad) of the rank's scenario
+    slice, with obstacle points sharded over the mesh's obs axis and
+    scenarios over scn; the obs-row partial costs and gradients are summed
+    by an all_reduce."""
+    n_obs_shards = mesh.shape["obs"]
+
+    def run(x_b, head_b, tail_b, obs_b):
+        x, head, tail, obs = _shard(mesh, x_b, head_b, tail_b, obs_b)
+        vg = lbfgs.value_and_grad(_local_cost(shape, cfg, svs_cfg, n,
+                                              n_obs_shards, head, tail, obs))
+        return _obs_reduced(vg, mesh)(x)
+
+    return run
+
+
+def sharded_plan_batch(shape, mesh, cfg: PlannerConfig, svs_cfg: SVSDFConfig,
+                       n: int, max_iters: int = 50, max_linesearch: int = 2):
+    """The full sharded solve: the batched L-BFGS loop on each rank's
+    scenario slice, every cost evaluation inside it summed over the obs
+    row (so the row's ranks advance one identical solve in lockstep).
+    Returns f(x_b, head_b, tail_b, obs_b) -> (x, cost, iters, converged)
+    of the rank's scenario slice."""
+    n_obs_shards = mesh.shape["obs"]
+    params = lbfgs.LBFGSParams(mem_size=cfg.mem_size,
+                               max_iterations=max_iters,
+                               g_epsilon=1e-7, past=3,
+                               delta=cfg.relCostTol,
+                               max_linesearch=max_linesearch)
+
+    def run(x_b, head_b, tail_b, obs_b):
+        x, head, tail, obs = _shard(mesh, x_b, head_b, tail_b, obs_b)
+        vg = lbfgs.value_and_grad(_local_cost(shape, cfg, svs_cfg, n,
+                                              n_obs_shards, head, tail, obs))
+        res = lbfgs.minimize(_obs_reduced(vg, mesh), x, params)
+        return res.x, res.f, res.n_iters, res.converged
+
+    return run
+
+
+def sharded_step(shape, mesh, cfg: PlannerConfig, svs_cfg: SVSDFConfig,
+                 n: int, lr: float = 1e-2):
+    """One sharded gradient step over the batch: step(x_b, head_b, tail_b,
+    obs_b) -> (x - lr * grad, cost) of the rank's scenario slice."""
+    vg = sharded_value_and_grad(shape, mesh, cfg, svs_cfg, n)
+
+    def step(x_b, head_b, tail_b, obs_b):
+        cost, grad = vg(x_b, head_b, tail_b, obs_b)
+        x = multihost.global_batch_array(x_b, mesh, ("scn",))
+        return x - lr * grad, cost
+
+    return step
+
+
+def sharded_plan_batch_e2e(shape, mesh, cfg: PlannerConfig, stages: tuple,
+                           n: int, n_obs: int, resolution, xy_min,
+                           max_linesearch: int = 2, refine_rounds: int = 0,
+                           refine_iters: int = 12, refine_esc: float = 4.0,
+                           cert_margin: float = 0.0):
+    """End-to-end planning with the scenarios split over the mesh's scn
+    axis: the front end couples no scenarios, so each rank runs
+    ``plan_batch_e2e`` on its slice with the map products (feas, occ_pts)
+    replicated, and no collective runs at all. Returns f(feas, occ_pts,
+    starts_ij, goals_ij) -> E2EBatchResult of the rank's slice."""
+    def run(feas, occ_pts, starts_ij, goals_ij):
+        starts = multihost.global_batch_array(starts_ij, mesh, ("scn",))
+        goals = multihost.global_batch_array(goals_ij, mesh, ("scn",))
+        return plan_batch_e2e(shape, feas, occ_pts, starts, goals, cfg,
+                              stages, n, n_obs, resolution, xy_min,
+                              max_linesearch, refine_rounds=refine_rounds,
+                              refine_iters=refine_iters,
+                              refine_esc=refine_esc,
+                              cert_margin=cert_margin, device=mesh.device)
+
+    return run

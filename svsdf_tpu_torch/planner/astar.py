@@ -13,8 +13,13 @@ with a 1+1e-3 tie-break (front_end_Astar.hpp:165-183), the yaw chosen
 per node at discovery by a BFS over yaw bins from the parent's bin
 (checkKernelValue, sw_manager.hpp:1158-1169), the sub-sweep transition
 veto after the yaw choice (front_end_Astar.hpp:218-227), and the JAX
-package's counter-ordered heap and yaw-change edge cost. The JAX
-package's C++ runtime for this loop is not carried over.
+package's counter-ordered heap and yaw-change edge cost.
+
+The search runs in the C++ host runtime (native/, csrc/runtime.cpp
+``svsdf_astar``: the same semantics, the same path, bins and expansion
+count) whenever its library built, as in the JAX package; the Python
+loop below is the fallback and the oracle the native route is tested
+against.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 
+from svsdf_tpu_torch import native
 from svsdf_tpu_torch.ops.kernels import DIRS8, YAW_BFS_DELTAS, yaw_bin
 from svsdf_tpu_torch.utils.gridmap import GridMap
 
@@ -44,7 +50,8 @@ def _failed(expansions: int) -> AstarResult:
 def search(grid: GridMap, feas: np.ndarray,
            trans_feas: Optional[np.ndarray], start_w, goal_w, yaw_num: int,
            max_expansions: int = 2_000_000,
-           yaw_change_weight: float = 0.1) -> AstarResult:
+           yaw_change_weight: float = 0.1,
+           use_native: Optional[bool] = None) -> AstarResult:
     """feas: (K, X, Y) bool (ops.kernels.feasibility_maps, on the host);
     trans_feas: (K, D, 8, X, Y) bool (transition_feasibility) or None to
     skip the sub-sweep veto.
@@ -52,12 +59,11 @@ def search(grid: GridMap, feas: np.ndarray,
     yaw_change_weight adds a per-bin yaw-change edge cost (the
     reference's getCustomCost hook, front_end_Astar.hpp:186-190, returns
     0; a nonzero value discourages yaw swings between adjacent cells).
-    The heuristic ignores yaw, so admissibility holds."""
-    feas = np.asarray(feas)
-    if trans_feas is not None:
-        trans_feas = np.asarray(trans_feas)
-    X, Y = feas.shape[1], feas.shape[2]
+    The heuristic ignores yaw, so admissibility holds.
 
+    use_native: run the loop in the C++ runtime when it is available
+    (True, or None: the default), or in Python (False); as in the JAX
+    package, True without a runtime runs the Python loop."""
     # SE(2) search: only the xy footprint must be in the map (the z slot
     # of start/goal carries yaw downstream, plan_manager.cpp:109-111)
     def _in_xy(p):
@@ -70,6 +76,19 @@ def search(grid: GridMap, feas: np.ndarray,
 
     si = grid.grid_index(start_w)[:2]
     gi = grid.grid_index(goal_w)[:2]
+    if use_native is not False and native.available():
+        cells, expansions = native.astar(
+            np.asarray(feas), trans_feas, grid.occ2d, si, gi,
+            yaw_bin(yaw_num, 0.0), np.asarray(YAW_BFS_DELTAS, np.int32),
+            yaw_change_weight, max_expansions)
+        if cells is None:
+            return _failed(expansions)
+        return _emit_path(grid, cells[:, :2], cells[:, 2], yaw_num,
+                          expansions)
+    feas = np.asarray(feas)
+    if trans_feas is not None:
+        trans_feas = np.asarray(trans_feas)
+    X, Y = feas.shape[1], feas.shape[2]
     start = (int(si[0]), int(si[1]))
     goal = (int(gi[0]), int(gi[1]))
 

@@ -5,10 +5,10 @@ Re-design of GridMap3D + PCSmapManager
 (`src/map_manager/src/Gridmap3D.cpp:25-260`,
 `src/map_manager/src/PCSmap_manager.cpp:88-210`): bounds measured from
 the cloud, count-threshold voxelization, voxel-center queries, and the
-AABB obstacle-point harvest. The JAX package voxelizes through its
-optional native library when it is built; this copy always takes the
-numpy voxelizer, which gives the same grid. The ESDF conveniences of the
-JAX class are not carried: ``ops/esdf.py`` takes ``occ`` directly.
+AABB obstacle-point harvest, and the ESDF conveniences of GridMap3D
+(``generate_esdf``, ``sdf_value``, ``sdf_value_with_grad``). Voxelizing
+runs in the C++ host runtime (native/) when its library built, else in
+numpy; both give the same grid.
 """
 
 from __future__ import annotations
@@ -17,6 +17,9 @@ import dataclasses
 from typing import Tuple
 
 import numpy as np
+import torch
+
+from svsdf_tpu_torch import native, resolve_device
 
 
 @dataclasses.dataclass
@@ -43,6 +46,11 @@ class GridMap:
         xyz_max = points.max(axis=0)
         shape = np.maximum(
             np.ceil((xyz_max - xyz_min) / resolution).astype(int), 1)
+        if native.available():
+            occ = native.voxelize(points, xyz_min, resolution,
+                                  tuple(shape), sta_threshold)
+            return cls(resolution=float(resolution), xyz_min=xyz_min,
+                       occ=occ.astype(np.uint8))
         idx = np.floor((points - xyz_min) / resolution).astype(int)
         idx = np.clip(idx, 0, shape - 1)
         counts = np.zeros(shape, dtype=np.int32)
@@ -123,3 +131,41 @@ class GridMap:
         if not len(idx):
             return np.zeros((0, 3))
         return self.cube_center(idx)
+
+    # -- ESDF convenience (GridMap3D::generateESDF3d + getSDFValue /
+    # getSDFValueWithGrad, Gridmap3D.cpp:366-497, GridMap3D.h:55-128) -------
+
+    def generate_esdf(self, device=None, dtype=torch.float32):
+        """The signed Euclidean distance field (X, Y, Z) of the occupancy
+        grid in world units (ops/esdf.py), computed once per device and
+        dtype and kept. ``device=None`` runs on CUDA and raises without
+        it."""
+        dev = resolve_device(device)
+        cache = self.__dict__.setdefault("_esdf", {})
+        key = (str(dev), dtype)
+        if key not in cache:
+            from svsdf_tpu_torch.ops import esdf as esdf_ops
+            cache[key] = esdf_ops.esdf(self.occ, self.resolution, dev, dtype)
+        return cache[key]
+
+    def sdf_value(self, points, device=None, dtype=torch.float32):
+        """Trilinear map SDF at world points (..., 3) (getSDFValue)."""
+        from svsdf_tpu_torch.ops import esdf as esdf_ops
+        field = self.generate_esdf(device, dtype)
+        pts = torch.as_tensor(points, dtype=dtype, device=field.device)
+        return esdf_ops.interp_sdf(field, self.xyz_min, self.resolution, pts)
+
+    def sdf_value_with_grad(self, points, device=None, dtype=torch.float32):
+        """(sdf, dsdf/dp) at world points (..., 3): the gradient of the
+        trilinear interpolant by autograd, exact where the reference
+        derives it by hand (getSDFValueWithGrad, GridMap3D.h:90-128).
+        A single point (3,) gives a 0-D value and a (3,) gradient."""
+        from svsdf_tpu_torch.ops import esdf as esdf_ops
+        field = self.generate_esdf(device, dtype)
+        pts = torch.as_tensor(points, dtype=dtype, device=field.device)
+        with torch.enable_grad():
+            q = pts.detach().requires_grad_(True)
+            vals = esdf_ops.interp_sdf(field, self.xyz_min, self.resolution,
+                                       q)
+            (grads,) = torch.autograd.grad(vals.sum(), q)
+        return vals.detach(), grads

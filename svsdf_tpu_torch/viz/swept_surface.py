@@ -4,8 +4,9 @@ of svsdf_tpu/viz/swept_surface.py).
 The 2-D swept boundary: a dense SVSDF field over a regular grid (one
 batched ``svsdf_grid`` query on the trajectory's device), then marching
 squares on the host, optionally extruded to a 3-D OBJ (writeSVtoObj,
-sw_manager.hpp:176-185). Marching squares is the Python loop, the JAX
-package's own path where its native library is absent.
+sw_manager.hpp:176-185). Marching squares runs in the C++ host runtime
+(native/) on a field with one uniform step when the runtime is
+available, as in the JAX package, else in the Python loop.
 
 The 3-D swept volume of a mesh robot: the running minimum over n_t
 trajectory poses of the robot's volumetric SDF (models/mesh_sdf.py
@@ -26,6 +27,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from svsdf_tpu_torch import native
 from svsdf_tpu_torch.ops.svsdf import DEFAULT_CONFIG, linspace, svsdf_grid
 from svsdf_tpu_torch.utils import trajectory as trj
 
@@ -60,13 +62,28 @@ def svsdf_field(shape, traj, bounds, eps: float, cfg=DEFAULT_CONFIG,
     return xs, ys, field[0].cpu().numpy()
 
 
-def marching_squares(xs, ys, field, level: float = 0.0
+def marching_squares(xs, ys, field, level: float = 0.0,
+                     use_native: bool | None = None
                      ) -> List[Tuple[np.ndarray, np.ndarray]]:
     """Iso-contour segments of ``field`` (X, Y) at ``level``: a list of
     ((x0, y0), (x1, y1)) with linear interpolation along cell edges (the
-    2-D analogue of the igl::marching_cubes call, sw_calculate.hpp:125)."""
+    2-D analogue of the igl::marching_cubes call, sw_calculate.hpp:125).
+    The native route (``use_native`` None or True, where the runtime is
+    available and the step uniform) emits the same segments in another
+    order and orientation, from the field rounded to float32; False runs
+    the Python loop on the field as given."""
     xs = np.asarray(xs)
     ys = np.asarray(ys)
+    # the native kernel assumes one shared uniform step for both axes
+    uniform = (len(xs) > 1 and len(ys) > 1
+               and np.allclose(np.diff(xs), xs[1] - xs[0])
+               and np.allclose(np.diff(ys), ys[1] - ys[0])
+               and np.isclose(ys[1] - ys[0], xs[1] - xs[0]))
+    if uniform and use_native is not False and native.available():
+        segs_arr = native.marching_squares(
+            np.asarray(field) - level, float(xs[0]), float(ys[0]),
+            float(xs[1] - xs[0]), 0.0)
+        return [(s[0], s[1]) for s in segs_arr]
     f = np.asarray(field) - level
     segs = []
     nx, ny = f.shape

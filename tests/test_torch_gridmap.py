@@ -2,9 +2,9 @@
 
 ``svsdf_tpu_torch/utils/mapgen.py`` and ``utils/gridmap.py`` are the
 port's own numpy copies; the same seeds must give the same clouds, and
-the same clouds the same grids (the JAX package may voxelize through its
-native library, the port always through numpy). All comparisons are
-exact.
+the same clouds the same grids (each package voxelizes through its
+native library when it is built, else through numpy). All comparisons
+are exact.
 """
 
 import numpy as np

@@ -88,7 +88,10 @@ def test_fresh_import_loads_no_jax():
             "svsdf_tpu_torch.utils.cache",
             "svsdf_tpu_torch.viz.dashboard",
             "svsdf_tpu_torch.utils.geo",
-            "svsdf_tpu_torch.viz.scene"} <= set(names)
+            "svsdf_tpu_torch.viz.scene",
+            "svsdf_tpu_torch.native", "svsdf_tpu_torch.ops.banded",
+            "svsdf_tpu_torch.parallel.multihost",
+            "svsdf_tpu_torch.parallel.local_world"} <= set(names)
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", _PROBE, json.dumps(names)],
                          cwd=ROOT, env=env, capture_output=True, text=True,
@@ -245,3 +248,43 @@ def test_deployment_entry_points_default_to_cuda(monkeypatch, tmp_path):
     stream = traj_server.sample_commands(traj)
     assert stream.pos.device.type == "cpu" and stream.pos.shape[0] == 1
     assert closed_loop.fly(traj).pos.device.type == "cpu"
+
+
+def test_native_runtime_is_the_ports_own():
+    """The port builds its own copy of the C++ runtime into its build
+    directory and never loads the JAX package's library."""
+    from svsdf_tpu_torch import native
+    from svsdf_tpu_torch.ops.cuda_svsdf import BUILD_DIR
+    assert native.SOURCE == PKG / "csrc" / "runtime.cpp"
+    assert native.library_path().parent == BUILD_DIR
+    assert BUILD_DIR.is_relative_to(ROOT / "build")
+    assert native.available(), native.build_log()
+    assert not native._load()._name.startswith(str(ROOT / "svsdf_tpu"))
+
+
+def test_sharded_and_esdf_entry_points_default_to_cuda(monkeypatch):
+    from svsdf_tpu_torch.parallel import multihost as mh
+    from svsdf_tpu_torch.utils.gridmap import GridMap
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(k, raising=False)
+    for call in (lambda: pb.make_mesh(1, 1), lambda: mh.pod_mesh(),
+                 lambda: mh.initialize("127.0.0.1:1", 1, 0)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    occ = np.zeros((4, 4, 2), np.uint8)
+    occ[1, 1, 0] = 1
+    g = GridMap(resolution=1.0, xyz_min=np.zeros(3), occ=occ)
+    for call in (g.generate_esdf, lambda: g.sdf_value(np.zeros((1, 3))),
+                 lambda: g.sdf_value_with_grad(np.zeros(3))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    # the host runs only when asked for
+    assert g.generate_esdf(device="cpu").device.type == "cpu"
+    mesh = pb.make_mesh(1, 1, device="cpu")
+    h, t, o, x0 = problem(2, 4, 2)
+    out = pb.sharded_plan_batch(shapes.make_shape("Circle"), mesh,
+                                PlannerConfig(mem_size=BENCH_MEM_SIZE),
+                                pb.default_stages(5, scan_dtype=None)[0][0],
+                                2, max_iters=2)(x0, h, t, o)
+    assert out[0].device.type == "cpu"

@@ -3,8 +3,9 @@ against the JAX package's (svsdf_tpu/viz/swept_surface.py), on the cases of
 tests/test_swept3d.py and test_planner_e2e.py::test_swept_surface_circle_line.
 
   * marching squares and marching tetrahedra are numpy on both sides: the
-    same field gives the same segments and the same mesh, to the bit (the
-    JAX side's Python loop, its path where the native library is absent);
+    same field gives the same segments and the same mesh, to the bit (each
+    side's Python loop, its path where its native library is absent; the
+    native routes are held in tests/test_torch_native.py);
   * the 2-D SVSDF field of the Circle sweep in float64 (JAX with x64)
     within 1e-9 m, and the port's contour of it equal to JAX's marching
     squares of the same field;
@@ -28,6 +29,7 @@ from svsdf_tpu.models import shapes as jshapes
 from svsdf_tpu.ops import minco as jminco
 from svsdf_tpu.viz import swept_surface as jsw
 from svsdf_tpu_torch import convert
+from svsdf_tpu_torch import native as port_native
 from svsdf_tpu_torch.models import mesh_sdf
 from svsdf_tpu_torch.viz import swept_surface as sw
 from tests.test_swept3d import _unit_cube_mesh, _watertight
@@ -37,9 +39,10 @@ torch.set_num_threads(1)
 
 @pytest.fixture
 def python_marching_squares(monkeypatch):
-    """The JAX package's Python marching-squares loop (its fallback where
-    the native runtime is absent), the loop the port carries."""
+    """The Python marching-squares loops of both packages (each one's
+    fallback where its native runtime is absent)."""
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(port_native, "available", lambda: False)
 
 
 def _to_port(jtraj):
