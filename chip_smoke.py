@@ -6,7 +6,9 @@
 Phases, one line each (any failure raises and the exit code is not 0):
   1. environment: torch / CUDA versions, the card's name and power limit;
   2. build: compiles svsdf_tpu_torch/csrc/coarse_scan.cu into
-     build/kernels/ with nvcc (sm_90a);
+     build/kernels/ with nvcc (sm_90a), then holds the grid body's
+     branch-free square roots against the correctly rounded root at every
+     positive float32 and bfloat16 input (grid_roots: no mismatch);
   3. kernel vs plain: the coarse-scan kernel against its plain PyTorch
      version on the card, on the parity cases of the JAX package's
      tests/test_pallas_svsdf.py for every shape body (the 17 analytic
@@ -20,8 +22,10 @@ Phases, one line each (any failure raises and the exit code is not 0):
      1x512x128), the grid query's (1x65536x256) and every body at
      512x64x96, and sdHeart's bfloat16, deformable and deformable
      bfloat16 forms at 512x64x96 and its bfloat16 form at the grid
-     shape, and the grid body (the sdHeart prism) in both forms at
-     512x64x96 and the grid shape: the kernel's device time
+     shape, the deformable form at the single plan's shapes, and the
+     grid body (the sdHeart prism) in both forms at 512x64x96, 512x64x128
+     and the grid shape (grid_body_times: each with its launch geometry,
+     the corner records' size): the kernel's device time
      (torch.profiler) and the wrapper's
      and the plain version's time per call (CUDA events), printed in the
      kernel table's JSON line; the launch geometry of each timed shape
@@ -85,7 +89,9 @@ Phases, one line each (any failure raises and the exit code is not 0):
      on the three deformable scenarios at scripts/run_scenarios.py's
      SVSDF settings, each gated as in phase 9 against its
      scenario_results.json row, the certificate printed beside the
-     row's; then each deformable robot through one plan_batch_staged
+     row's, and the deformable form timed at each shape those plans
+     launched it at (deformable_scan_times: launches x (ms - bound));
+     then each deformable robot through one plan_batch_staged
      solve at B=32 with default_stages(40) (the deformable bfloat16
      form);
  13. the LMBM back end: Planner(solver="lmbm") on synthetic_Circle (its
@@ -233,10 +239,14 @@ OPS_PER_EVAL = {"Circle": 18, "sdHeart": 43, "sdArc": 32,
                 "sdHorseshoe": 46, "sdRoundedCross": 44,
                 "sdOrientedVesica": 40, "sdPie": 42, "sdPie2": 42}
 OPS_POLYGON = (27, 8 + 12)
-#: the grid body's (a mesh robot's) operations per evaluation, counted
-#: from csrc/coarse_scan.cu Grid::body: grid coordinates 4, clips 4,
-#: floors, indices and fractions 8, the corners' clamped indices and
-#: addresses 16 and their four 4-byte gathers 4, the weights 6, the
+#: the grid body's (a mesh robot's) operations per evaluation: the
+#: function's work as models/mesh_sdf.py GridSDF2D.sdf_xy states it, four
+#: corners gathered at clamped indices; the kernel's corner records
+#: (GridSDF2D.corner_records) do the clamps once a grid, which the bound
+#: does not take as saved: it counts the function, not one
+#: implementation's instructions. Grid coordinates 4,
+#: clips 4, floors, indices and fractions 8, the corners' clamped indices
+#: and addresses 16 and their four 4-byte gathers 4, the weights 6, the
 #: bilinear sum 7, the overshoots 8, their squares and sum 7, the guarded
 #: root, the step and the sum 5 (69); with the pose transform 11 and the
 #: compare 1. OPS_GRID_BF16 of them are bfloat16 operations in the
@@ -295,6 +305,10 @@ E2E_SHAPES = ((512, 48, 96), (512, 48, 128), (512, 48, 192))
 PLANNER_SHAPES = ((1, 768, 128), (1, 512, 128))
 #: (B, M, K) of the grid query's scan (phase 11), timed in phase 3
 GRID_SHAPE = (1, 65536, 256)
+#: (B, M, K) at which phase 3 times the grid body (the sdHeart prism) in
+#: both forms: the prism batch's fast and polish stages (phase 14c) and
+#: the grid query's scan (phase 14e)
+GRID_BODY_SHAPES = ((512, 64, 96), (512, 64, 128), GRID_SHAPE)
 #: the bodies phase 3 checks on its first parity cases; every other body
 #: runs the same cases after them
 FIRST_BODIES = ("sdHeart", "Circle", "sdArc")
@@ -548,7 +562,7 @@ class ShapeLog:
     worst: dict = {}
 
     def __init__(self, cs):
-        self.cs, self.seen = cs, {}
+        self.cs, self.seen, self.counts = cs, {}, {}
         self._orig = cs._launch
 
     def __enter__(self):
@@ -557,6 +571,7 @@ class ShapeLog:
                    shape.vertices, form_of(self.cs, shape, scan_dtype),
                    points.shape[0], points.shape[1], xy.shape[1])
             self.seen.setdefault(key, (shape, scan_dtype))
+            self.counts[key] = self.counts.get(key, 0) + 1
             return self._orig(shape, points, xy, cos, sin, scan_dtype, ts)
         self.cs._launch = logged
         return self
@@ -567,8 +582,16 @@ class ShapeLog:
     def summary(self, form=None):
         """'<shape> <form> BxMxK' of every launch, of ``form`` only if
         given."""
-        return sorted({f"{k[0]} {k[5]} {k[6]}x{k[7]}x{k[8]}"
-                       for k in self.seen if form in (None, k[5])})
+        return sorted(self.by_shape(form))
+
+    def by_shape(self, form=None):
+        """{'<shape> <form> BxMxK': launches}, of ``form`` only if given."""
+        out = {}
+        for k, n in self.counts.items():
+            if form in (None, k[5]):
+                name = f"{k[0]} {k[5]} {k[6]}x{k[7]}x{k[8]}"
+                out[name] = out.get(name, 0) + n
+        return out
 
     def check(self, torch, path, seed):
         """Kernel vs plain, bit for bit, on seeded inputs at every shape,
@@ -585,7 +608,8 @@ class ShapeLog:
             entry = entry_of(self.cs, shape, scan_dtype)
             ShapeLog.worst[entry] = max(ShapeLog.worst.get(entry, 0.0), err)
         say("path_scans", path=path, cases=len(self.seen),
-            shapes=self.summary(), max_abs_err=worst, bitwise=True)
+            shapes=self.summary(), launches=self.by_shape(),
+            max_abs_err=worst, bitwise=True)
         return worst
 
 
@@ -605,6 +629,33 @@ def time_scan(torch, cs, shape, inp, scan_dtype, ts, bound):
             "ms_source": "profiler" if kernel is not None else "events",
             "wrapper_ms": wrapper, "profiled_launches": seen,
             "plain_ms": plain, "bound_ms": bound[0], "bound_by": bound[1]}
+
+
+def excess(t, by_shape):
+    """launches x (ms - bound) at the timed row ``t`` (time_scan): the
+    launches at its (B, M, K), any body, from a path's counts by shape
+    (ShapeLog.by_shape)."""
+    n = sum(v for key, v in by_shape.items()
+            if key.endswith(f" {t['B']}x{t['M']}x{t['K']}"))
+    return {"launches": n, "ms": n * (t["ms"] - t["bound_ms"])}
+
+
+def path_scan_times(torch, cs, log, seed):
+    """Each shape, form and (B, M, K) a path launched (a ShapeLog) timed
+    on seeded inputs (time_scan), with its launches on that path and
+    launches x (ms - bound)."""
+    rows = []
+    for i, (key, (shape, dt)) in enumerate(log.seen.items()):
+        b, m, k = key[6:]
+        row = time_scan(torch, cs, shape,
+                        scan_inputs(torch, b, m, k, seed + i), dt,
+                        pose_times(torch, b, k, seed + i),
+                        scan_bound_ms(shape, b, m, k, bf16=dt is not None))
+        n = log.counts[key]
+        rows.append(dict(row, shape=shape.name, form=key[5], launches=n,
+                         launches_x_ms_over_bound=n * (row["ms"]
+                                                       - row["bound_ms"])))
+    return rows
 
 
 def timed(torch, fn):
@@ -1390,6 +1441,12 @@ def main() -> int:
         library=os.path.relpath(lib, ROOT),
         ptxas=[ln.strip() for ln in log.splitlines()
                if "registers" in ln or "spill" in ln])
+    # the grid body's branch-free roots at every positive input
+    roots = cs.root_mismatches("cuda")
+    say("grid_roots", float32_mismatches=roots[0],
+        bfloat16_mismatches=roots[1])
+    if roots != (0, 0):
+        raise AssertionError(f"the grid body's roots are not exact: {roots}")
 
     # -- 14 (a). the mesh robots, which phase 3 checks too -------------
     mesh_dir = tempfile.TemporaryDirectory()
@@ -1483,30 +1540,39 @@ def main() -> int:
         inp = scan_inputs(torch, b, m, k, seed=99)
         timings.append(dict(path=path, **time_scan(
             torch, cs, heart, inp, None, None, scan_bound_ms(heart, b, m, k))))
-    # sdHeart's other forms: at the main path's shape, and the bfloat16
-    # form at the grid query's
+    # sdHeart's other forms: at the main path's shape, the bfloat16 form
+    # at the grid query's, the deformable float32 form at the single
+    # plan's (where the deformable Planner.plan runs launch it)
     scaled_heart = fixtures.deformable_scenario("deformable_heart").shape
     form_times = {}
     for fm, shape, dt, (b, m, k) in (
             ("bfloat16", heart, "bfloat16", BODY_TIME_SHAPE),
             ("scaled_float32", scaled_heart, None, BODY_TIME_SHAPE),
             ("scaled_bfloat16", scaled_heart, "bfloat16", BODY_TIME_SHAPE),
-            ("bfloat16", heart, "bfloat16", GRID_SHAPE)):
+            ("bfloat16", heart, "bfloat16", GRID_SHAPE),
+            *(("scaled_float32", scaled_heart, None, sh)
+              for sh in PLANNER_SHAPES)):
         inp = scan_inputs(torch, b, m, k, seed=97)
         row = time_scan(torch, cs, shape, inp, dt, pose_times(torch, b, k, 97),
                         scan_bound_ms(shape, b, m, k, bf16=dt is not None))
         form_times.setdefault(fm, []).append(dict(form=fm, **row))
-    # the grid body (the sdHeart prism) in both forms at the main path's
-    # shape and the grid query's
+    # the grid body (the sdHeart prism) in both forms at the prism batch's
+    # shapes and the grid query's, each with the launch geometry it took
     heart_mesh = mesh["heart_prism"]
     for dt in (None, "bfloat16"):
-        for b, m, k in (BODY_TIME_SHAPE, GRID_SHAPE):
+        for b, m, k in GRID_BODY_SHAPES:
             inp = scan_inputs(torch, b, m, k, seed=96)
             row = time_scan(torch, cs, heart_mesh, inp, dt, None,
                             scan_bound_ms(heart_mesh, b, m, k,
                                           bf16=dt is not None))
             fm = "grid_" + form_of(cs, heart_mesh, dt)
-            form_times.setdefault(fm, []).append(dict(form=fm, **row))
+            form_times.setdefault(fm, []).append(dict(
+                form=fm, geometry=cs.launch_geometry(b, m, k), **row))
+    say("grid_body_times", robot=heart_mesh.name, route="corner_records",
+        grid=f"{heart_mesh.grid.nx}x{heart_mesh.grid.ny}",
+        record_cells=heart_mesh.grid.record_cells(),
+        records_bytes=heart_mesh.grid.corner_records("cuda").nbytes,
+        rows=form_times["grid_float32"] + form_times["grid_bfloat16"])
     # every body at one shape: kernel (profiler), plain (events), bound
     body_times = []
     inp = scan_inputs(torch, *BODY_TIME_SHAPE, seed=98)
@@ -2011,6 +2077,9 @@ def main() -> int:
     say("deformable_launches", kernel_launches=cs.coarse_scan.launches,
         form_launches=cs.coarse_scan.form_launches)
     deform_log.check(torch, "deformable planner", seed=7000)
+    # the deformable form timed where those plans launched it
+    deform_shape_times = path_scan_times(torch, cs, deform_log, seed=7100)
+    say("deformable_scan_times", rows=deform_shape_times)
     # each deformable robot through a staged solve with bfloat16 scans
     cs.reset_launches()
     with ShapeLog(cs) as deform_staged_log:
@@ -2326,7 +2395,12 @@ def main() -> int:
             "scaled_float32", deform_launches,
             form_times["scaled_float32"][0], counterpart_of=xla_scan,
             shapes_ran={"deformable_planner":
-                        deform_log.summary("scaled_float32")}),
+                        deform_log.summary("scaled_float32")},
+            launches_by_shape=deform_log.by_shape("scaled_float32"),
+            planner_shapes=[dict(t, launches_x_ms_over_bound=excess(
+                t, deform_log.by_shape("scaled_float32")))
+                for t in form_times["scaled_float32"][1:]],
+            path_shapes=deform_shape_times),
         kernel_entry(
             "scaled_bfloat16", deform_bf16_launches,
             form_times["scaled_bfloat16"][0], counterpart_of=xla_scan,
@@ -2344,7 +2418,13 @@ def main() -> int:
                         "mesh_planner": mesh_plan_log.summary(),
                         "mesh_grid": mesh_grid_log.summary(),
                         "mesh_replan": mesh_replan_log.summary("float32")},
-            grid_scan=form_times["grid_float32"][1]),
+            launches_by_shape={
+                "mesh_main": mesh_log.by_shape("float32"),
+                "mesh_planner": mesh_plan_log.by_shape(),
+                "mesh_grid": mesh_grid_log.by_shape(),
+                "mesh_replan": mesh_replan_log.by_shape("float32")},
+            timed_shapes=form_times["grid_float32"],
+            grid_scan=form_times["grid_float32"][-1]),
         kernel_entry(
             "grid_bfloat16", mesh_bf16_launches,
             form_times["grid_bfloat16"][0], counterpart_of=xla_scan,
@@ -2352,7 +2432,11 @@ def main() -> int:
                               "mesh_replan": mesh_replan_by_form["bfloat16"]},
             shapes_ran={"mesh_main": mesh_bf16_log.summary("bfloat16"),
                         "mesh_replan": mesh_replan_log.summary("bfloat16")},
-            grid_scan=form_times["grid_bfloat16"][1]),
+            launches_by_shape={
+                "mesh_main": mesh_bf16_log.by_shape("bfloat16"),
+                "mesh_replan": mesh_replan_log.by_shape("bfloat16")},
+            timed_shapes=form_times["grid_bfloat16"],
+            grid_scan=form_times["grid_bfloat16"][-1]),
     ]}), flush=True)
     memo_root.cleanup()
     print(card, flush=True)

@@ -25,12 +25,14 @@ the JAX package does, in torch, on planes of any shape and device:
     ``_clip``, so autograd's gradient is ``jax.grad``'s.
 
 A grid keeps its field on the host as numpy and one copy per device and
-dtype (``table``), so a shape stays device-free, as a Polygon is, and
-hashes by identity.
+dtype (``table``), and a planar grid its corner records per device for
+the coarse-scan kernel (``GridSDF2D.corner_records``), so a shape stays
+device-free, as a Polygon is, and hashes by identity.
 """
 
 from __future__ import annotations
 
+import math
 import os
 
 import numpy as np
@@ -265,6 +267,37 @@ class GridSDF2D(_Grid):
                     self.x0, self.y0, self.step, self.nx - 1.001,
                     self.ny - 1.001))
         return self._constants[dtype]
+
+    def record_cells(self) -> tuple[int, int]:
+        """(rx, ry): the cells a clipped coordinate's floor index reaches
+        in float32 or bfloat16, past n - 1 where the bfloat16 clip bound
+        n - 1.001 rounds up beyond it (a 604-cell axis's to 604.0)."""
+        if self.nx < 2 or self.ny < 2:
+            raise ValueError("a grid needs two cells on each axis")
+        return tuple(
+            max([n] + [int(math.floor(self.scan_constants(dt)[3 + a])) + 1
+                       for dt in (torch.float32, torch.bfloat16)])
+            for a, n in enumerate((self.nx, self.ny)))
+
+    def corner_records(self, device) -> torch.Tensor:
+        """The coarse-scan kernel's corner records: a contiguous (rx, ry,
+        4) float32 table whose cell (ix, iy) holds the field's values at
+        (x0, y0), (x1, y0), (x0, y1), (x1, y1), x0 = min(ix, nx - 1), x1 =
+        min(ix + 1, nx - 1) and the same in y: the four corners
+        ``sdf_xy`` gathers at that floor index, copied bit for bit, so the
+        kernel reads them in one 16-byte load and clamps nothing. Made
+        once a device and kept beside the field's copies."""
+        key = (torch.device(device), "corner_records")
+        if key not in self._tables:
+            f = torch.tensor(self.field)
+            rx, ry = self.record_cells()
+            ax = lambda r, n, d: torch.clamp(torch.arange(r) + d, max=n - 1)
+            x0, x1 = ax(rx, self.nx, 0)[:, None], ax(rx, self.nx, 1)[:, None]
+            y0, y1 = ax(ry, self.ny, 0), ax(ry, self.ny, 1)
+            rec = torch.stack([f[x0, y0], f[x1, y0], f[x0, y1], f[x1, y1]],
+                              -1)
+            self._tables[key] = rec.contiguous().to(key[0])
+        return self._tables[key]
 
     def sdf_xy(self, px, py):
         gx, gx_c, ix, fx = _grid_coord(px, self.x0, self.step, self.nx)

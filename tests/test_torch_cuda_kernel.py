@@ -10,10 +10,11 @@ package, so on a card whose installation has no JAX it runs alone:
 Beside the float32 form's parity cases, the card tests hold both
 packed bfloat16 forms on every body and lane count, ties, signed zeros,
 NaN and subnormals, the grid body of mesh robots in both forms (every
-lane count, the bfloat16 clamp zone, grids past 48 KB and past 227 KB, a
-wrong grid refused), and force three paths on the card (GSIP at K = 64,
-certify-refine re-solves in a replan, the retry ladder's fine-yaw
-rungs), holding every launch they make. The other tests hold the
+lane count, the bfloat16 clamp zone and a clip past the last cell, grids
+past 48 KB and past 227 KB, its square roots at every positive input,
+wrong corner records refused), and force three paths on the card (GSIP
+at K = 64, certify-refine re-solves in a replan, the retry ladder's
+fine-yaw rungs), holding every launch they make. The other tests hold the
 wrapper's argument checks, which run before anything touches the card.
 """
 
@@ -662,19 +663,30 @@ def test_planner_tight_gate_reaches_refine_and_fine_yaw_on_card():
 @pytest.fixture(scope="module")
 def mesh_robots(tmp_path_factory):
     """The sdHeart prism (a 178 x 170 grid, 121 KB: past the 48 KB table)
-    under a pre-transform, and the r = 1.0 cylinder at resolution 0.01
-    (a 601 x 601 grid, 1.4 MB: past the 227 KB a block's shared memory
-    could hold)."""
+    under a pre-transform; the same prism at resolution 0.02 (an 801-cell
+    odd axis, 2.4 MB) and the r = 1.0 cylinder at resolution 0.01 (a
+    601 x 601 grid, 1.4 MB), both past the 227 KB a block's shared memory
+    could hold; and a 604 x 131 grid of seeded values at origin (0, 0),
+    whose bfloat16 clip bound rounds past the last cell (604.0) and where
+    a -0.0 body-frame coordinate reaches the clip as -0.0."""
     d = tmp_path_factory.mktemp("mesh")
-    heart = mesh_sdf.shape_from_mesh(
-        write_prism_obj("sdHeart", str(d / "heart_prism.obj")),
-        poly_params=(0.3, -0.2, 25.0))
+    heart_obj = write_prism_obj("sdHeart", str(d / "heart_prism.obj"))
+    heart = mesh_sdf.shape_from_mesh(heart_obj,
+                                     poly_params=(0.3, -0.2, 25.0))
+    fine = mesh_sdf.shape_from_mesh(heart_obj, resolution=0.02)
     cyl = mesh_sdf.shape_from_mesh(
         write_prism_obj("Circle", str(d / "cylinder.obj"), extent=2.0),
         resolution=0.01)
+    vals = np.random.default_rng(5).uniform(-2, 2, 604 * 131)
+    origin = mesh_sdf.mesh_shape(
+        "origin", mesh_sdf.GridSDF2D(vals, 0.0, 0.0, 0.02, 604, 131))
     assert heart.grid.field.nbytes > 48 * 1024
-    assert cyl.grid.field.nbytes > 227 * 1024
-    return {"heart": heart, "cylinder": cyl}
+    for big in (fine, cyl):
+        assert big.grid.field.nbytes > 227 * 1024
+    assert fine.grid.nx % 2 == 1 and origin.grid.ny % 2 == 1
+    assert origin.grid.record_cells()[0] > origin.grid.nx
+    return {"heart": heart, "heart_fine": fine, "cylinder": cyl,
+            "origin": origin}
 
 
 def _edge_inputs(shape, b, m, k, seed, device):
@@ -710,49 +722,70 @@ def _edge_inputs(shape, b, m, k, seed, device):
 @pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16, 32])
 def test_grid_body_every_lane_count(mesh_robots, lanes, bf16):
     """The grid body in both forms, each S forced, K = 1, 3, 37 and 64, on
-    inputs built to tie and on the grid's edges (the bfloat16 clamp
-    case): bit for bit against the plain version."""
+    inputs built to tie (every pose twice in a row: ties within a lane
+    and, for S > 1, across lanes) and on the grid's edges (the bfloat16
+    clamp case), for the prism and the grid whose bfloat16 clip passes
+    its last cell, at B = 3 and 2 (tiles that do not divide M):
+    bit for bit against the plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
-    shape = mesh_robots["heart"]
     dt = "bfloat16" if bf16 else None
-    for k in (1, 3, 37, 64):
-        for inp in (_tie_inputs(3, 301, k, seed=k, device="cuda"),
-                    _edge_inputs(shape, 2, 300, k, seed=k, device="cuda")):
-            b, m = inp[0].shape[:2]
-            before = cs.coarse_scan.launches
-            got = cs.launch(shape, *inp, lanes, *cs.block_shape(b, m, lanes),
-                            bf16=bf16)
-            want = cs.coarse_scan_reference(shape, *inp, scan_dtype=dt)
-            torch.cuda.synchronize()
-            assert cs.coarse_scan.launches == before + 1
-            _assert_bits_equal(got, want)
+    for robot in ("heart", "origin"):
+        shape = mesh_robots[robot]
+        for k in (1, 3, 37, 64):
+            for inp in (_tie_inputs(3, 301, k, seed=k, device="cuda"),
+                        _edge_inputs(shape, 2, 300, k, seed=k,
+                                     device="cuda")):
+                b, m = inp[0].shape[:2]
+                before = cs.coarse_scan.launches
+                got = cs.launch(shape, *inp, lanes,
+                                *cs.block_shape(b, m, lanes), bf16=bf16)
+                want = cs.coarse_scan_reference(shape, *inp, scan_dtype=dt)
+                torch.cuda.synchronize()
+                assert cs.coarse_scan.launches == before + 1
+                _assert_bits_equal(got, want)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("scan_dtype", [None, "bfloat16"])
-@pytest.mark.parametrize("robot", ["heart", "cylinder"])
+@pytest.mark.parametrize("robot", ["heart", "heart_fine", "cylinder",
+                                   "origin"])
 def test_grid_body_matches_plain_on_card(mesh_robots, robot, scan_dtype):
-    """The wrapper's launch at M = 4096, K = 64 and at the main path's
-    512 x 64 x 96, for a grid past the 48 KB table and one past 227 KB:
-    bit for bit."""
+    """The wrapper's launch at the geometry it picks, at M = 4096, K = 64,
+    at the prism batch's 512 x 64 x 96 and 512 x 64 x 128, at 37 plans
+    (a B that no block count divides) and, for the prism, at the grid
+    query's 1 x 65536 x 256; for a grid past the 48 KB table, grids past
+    227 KB and one whose bfloat16 clip passes its last cell: bit for bit,
+    and the kernel's plain model (``grid_body_reference``) is the plain
+    body on the card too."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
     shape = mesh_robots[robot]
-    for b, m, k in ((1, 4096, 64), (512, 64, 96)):
+    sizes = [(1, 4096, 64), (512, 64, 96), (512, 64, 128), (37, 100, 96)]
+    if robot == "heart":
+        sizes.append((1, 65536, 256))
+    for b, m, k in sizes:
         _assert_form_equals_plain(
             shape, _inputs(b, m, k, seed=m + k, device="cuda"), scan_dtype)
+    g = shape.grid
+    pts = _edge_inputs(shape, 1, 4096, 1, seed=3, device="cuda")[0][0]
+    for dt in (torch.float32, torch.bfloat16):
+        px, py = (pts[:, a].to(dt) for a in range(2))
+        _assert_bits_equal([cs.grid_body_reference(g, px, py)],
+                           [g.sdf_xy(px, py)])
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("scan_dtype", [None, "bfloat16"])
-def test_grid_body_signed_zeros_and_nan(mesh_robots, scan_dtype):
+@pytest.mark.parametrize("robot", ["heart", "origin"])
+def test_grid_body_signed_zeros_and_nan(mesh_robots, robot, scan_dtype):
     """-0.0 and NaN through the grid body at S = 1, the geometry's S and
     32, against the plain model of the kernel's algorithm (a NaN never
-    wins): bit for bit, signs of zero told apart."""
+    wins): bit for bit, signs of zero told apart. On the grid at origin
+    (0, 0) a point on a pose centre reaches the clip as -0.0."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
-    shape = mesh_robots["heart"]
+    shape = mesh_robots[robot]
     inp = _signed_zero_nan_inputs("cuda")
     b, m = inp[0].shape[:2]
     k = inp[1].shape[1]
@@ -765,20 +798,39 @@ def test_grid_body_signed_zeros_and_nan(mesh_robots, scan_dtype):
 
 
 @pytest.mark.cuda
+def test_grid_body_roots_are_exact():
+    """The grid body's branch-free square roots (csrc/coarse_scan.cu
+    root_rn) equal the correctly rounded root at every positive float32
+    and bfloat16 input on this card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    assert cs.root_mismatches("cuda") == (0, 0)
+
+
+@pytest.mark.cuda
 def test_grid_body_refuses_a_wrong_grid(mesh_robots):
-    """A grid that is not float32, not contiguous or of another size
-    raises before the launch, counting nothing."""
+    """Corner records that are not float32, not contiguous, of another
+    size or on another device raise before the launch, counting nothing;
+    records too few for the clip bound are refused by the C entry point
+    (a cudaError, before any launch)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
     shape = mesh_robots["heart"]
+    g = shape.grid
     inp = _inputs(1, 64, 32, seed=0, device="cuda")
-    table = shape.grid.table("cuda")
+    rec = g.corner_records("cuda")
     before = cs.coarse_scan.launches
-    for bad in (table.double(), table.t(), table[:-1].contiguous(),
-                table.cpu()):
-        with mock.patch.object(shape.grid, "table", lambda *a, **k: bad):
+    for bad in (rec.double(), rec.transpose(0, 1).contiguous().transpose(0, 1),
+                rec[:-1].contiguous(), rec.cpu()):
+        with mock.patch.object(g, "corner_records", lambda *a, **k: bad):
             with pytest.raises(TypeError, match="grid"):
                 cs.coarse_scan(shape, *inp)
+    short = rec[:int(g.scan_constants(torch.float32)[3])].contiguous()
+    with mock.patch.object(g, "corner_records", lambda *a, **k: short), \
+            mock.patch.object(g, "record_cells",
+                              lambda: tuple(short.shape[:2])):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            cs.coarse_scan(shape, *inp)
     assert cs.coarse_scan.launches == before
     for a, b in zip(cs.coarse_scan(shape, *inp),
                     cs.coarse_scan_reference(shape, *inp)):
