@@ -6,9 +6,14 @@
 Phases, one line each (any failure raises and the exit code is not 0):
   1. environment: torch / CUDA versions, the card's name and power limit;
   2. build: compiles svsdf_tpu_torch/csrc/coarse_scan.cu into
-     build/kernels/ with nvcc (sm_90a), then holds the grid body's
-     branch-free square roots against the correctly rounded root at every
-     positive float32 and bfloat16 input (grid_roots: no mismatch);
+     build/kernels/ with nvcc (sm_90a), and beside it (a second nvcc,
+     started together) scan_ab.py's ``floor`` build of the same source
+     into build/scan_variants/floor/, which phase 3 times and the package
+     never loads; then holds the grid body's branch-free square roots
+     against the correctly rounded root at every positive float32 and
+     bfloat16 input (grid_roots: no mismatch), and the deformable float32
+     form's division by a pose's scale against the IEEE quotient at every
+     float32 dividend of 4096 divisors (scale_division: no mismatch);
   3. kernel vs plain: the coarse-scan kernel against its plain PyTorch
      version on the card, on the parity cases of the JAX package's
      tests/test_pallas_svsdf.py for every shape body (the 17 analytic
@@ -22,7 +27,10 @@ Phases, one line each (any failure raises and the exit code is not 0):
      1x512x128), the grid query's (1x65536x256) and every body at
      512x64x96, and sdHeart's bfloat16, deformable and deformable
      bfloat16 forms at 512x64x96 and its bfloat16 form at the grid
-     shape, the deformable form at the single plan's shapes, and the
+     shape, the deformable float32 form with each deformable scenario's
+     robot (sdHeart, sdRhombus, star) at 512x64x96 and the single plan's
+     shapes, with the floor build's time at the single plan's shapes (the
+     least a launch of that shape takes: scaled_scan_times), and the
      grid body (the sdHeart prism) in both forms at 512x64x96, 512x64x128
      and the grid shape (grid_body_times: each with its launch geometry,
      the corner records' size): the kernel's device time
@@ -203,6 +211,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -633,11 +642,16 @@ def time_scan(torch, cs, shape, inp, scan_dtype, ts, bound):
 
 def excess(t, by_shape):
     """launches x (ms - bound) at the timed row ``t`` (time_scan): the
-    launches at its (B, M, K), any body, from a path's counts by shape
-    (ShapeLog.by_shape)."""
+    launches of its body at its (B, M, K) from a path's counts by shape
+    (ShapeLog.by_shape); with a measured floor, also against the bound
+    that takes it (``bound_with_floor_ms``)."""
     n = sum(v for key, v in by_shape.items()
-            if key.endswith(f" {t['B']}x{t['M']}x{t['K']}"))
-    return {"launches": n, "ms": n * (t["ms"] - t["bound_ms"])}
+            if key.endswith(f" {t['B']}x{t['M']}x{t['K']}")
+            and key.split()[0] == t["shape"])
+    out = {"launches": n, "ms": n * (t["ms"] - t["bound_ms"])}
+    if "bound_with_floor_ms" in t:
+        out["ms_over_floor_bound"] = n * (t["ms"] - t["bound_with_floor_ms"])
+    return out
 
 
 def path_scan_times(torch, cs, log, seed):
@@ -1435,9 +1449,18 @@ def main() -> int:
         count=torch.cuda.device_count())
 
     # -- 2. build ------------------------------------------------------
+    # the kernel, and scan_ab.py's floor build of its source (phase 3's
+    # least time of a deformable launch), one nvcc each, started together
+    import scan_ab
+    floor_build = scan_ab.variant_module("floor")
     t0 = time.perf_counter()
-    lib, log = cs.build()
-    say("build", seconds=round(time.perf_counter() - t0, 3),
+    with ThreadPoolExecutor(2) as pool:
+        floor_job = pool.submit(floor_build.build)
+        lib, log = cs.build()
+        build_s = time.perf_counter() - t0
+        floor_job.result()
+    say("build", seconds=round(build_s, 3),
+        with_floor_build_s=round(time.perf_counter() - t0, 3),
         library=os.path.relpath(lib, ROOT),
         ptxas=[ln.strip() for ln in log.splitlines()
                if "registers" in ln or "spill" in ln])
@@ -1447,6 +1470,17 @@ def main() -> int:
         bfloat16_mismatches=roots[1])
     if roots != (0, 0):
         raise AssertionError(f"the grid body's roots are not exact: {roots}")
+    # the deformable float32 form's division by a pose's scale at every
+    # dividend of the schedules' divisors (the card tests add every pair
+    # of significands: cs.div_pair_mismatches, a minute more)
+    t0 = time.perf_counter()
+    division = cs.div_mismatches("cuda")
+    say("scale_division", divisors=len(cs.division_divisors("cuda")),
+        every_dividend_mismatches=division,
+        seconds=time.perf_counter() - t0)
+    if division != 0:
+        raise AssertionError("the deformable float32 form's quotients are "
+                             f"not the IEEE ones: {division} mismatches")
 
     # -- 14 (a). the mesh robots, which phase 3 checks too -------------
     mesh_dir = tempfile.TemporaryDirectory()
@@ -1541,21 +1575,44 @@ def main() -> int:
         timings.append(dict(path=path, **time_scan(
             torch, cs, heart, inp, None, None, scan_bound_ms(heart, b, m, k))))
     # sdHeart's other forms: at the main path's shape, the bfloat16 form
-    # at the grid query's, the deformable float32 form at the single
-    # plan's (where the deformable Planner.plan runs launch it)
-    scaled_heart = fixtures.deformable_scenario("deformable_heart").shape
+    # at the grid query's; the deformable float32 form with each
+    # deformable scenario's robot there and at the single plan's shapes
+    # (where the deformable Planner.plan runs launch it)
+    scaled = scan_ab.deformable_robots()
+    scaled_heart = scaled["sdHeart"]
     form_times = {}
     for fm, shape, dt, (b, m, k) in (
             ("bfloat16", heart, "bfloat16", BODY_TIME_SHAPE),
-            ("scaled_float32", scaled_heart, None, BODY_TIME_SHAPE),
+            *(("scaled_float32", robot, None, sh) for robot in scaled.values()
+              for sh in (BODY_TIME_SHAPE, *PLANNER_SHAPES)),
             ("scaled_bfloat16", scaled_heart, "bfloat16", BODY_TIME_SHAPE),
-            ("bfloat16", heart, "bfloat16", GRID_SHAPE),
-            *(("scaled_float32", scaled_heart, None, sh)
-              for sh in PLANNER_SHAPES)):
+            ("bfloat16", heart, "bfloat16", GRID_SHAPE)):
         inp = scan_inputs(torch, b, m, k, seed=97)
         row = time_scan(torch, cs, shape, inp, dt, pose_times(torch, b, k, 97),
                         scan_bound_ms(shape, b, m, k, bf16=dt is not None))
-        form_times.setdefault(fm, []).append(dict(form=fm, **row))
+        form_times.setdefault(fm, []).append(dict(form=fm, shape=shape.name,
+                                                  **row))
+    # the floor: the same launch with the evaluation cut to one operation
+    # (scan_ab.py VARIANTS), where the single plan's launches fall; the
+    # bound there is the larger of the issue-rate bound and the floor
+    floor_ms = {}
+    for b, m, k in PLANNER_SHAPES:
+        inp = scan_inputs(torch, b, m, k, seed=97)
+        ts = pose_times(torch, b, k, 97)
+        t, _ = device_ms(torch, lambda: floor_build.coarse_scan(
+            scaled_heart, *inp, ts=ts))
+        if t is None:
+            raise RuntimeError("torch.profiler saw no floor launch")
+        floor_ms[(b, m, k)] = t
+    for row in form_times["scaled_float32"]:
+        floor = floor_ms.get((row["B"], row["M"], row["K"]))
+        if floor is not None:
+            row.update(floor_ms=floor,
+                       bound_with_floor_ms=max(row["bound_ms"], floor),
+                       bound_basis="floor" if floor > row["bound_ms"]
+                       else row["bound_by"])
+    say("scaled_scan_times", floor_route="scan_ab.py VARIANTS['floor']",
+        rows=form_times["scaled_float32"])
     # the grid body (the sdHeart prism) in both forms at the prism batch's
     # shapes and the grid query's, each with the launch geometry it took
     heart_mesh = mesh["heart_prism"]
@@ -2397,9 +2454,12 @@ def main() -> int:
             shapes_ran={"deformable_planner":
                         deform_log.summary("scaled_float32")},
             launches_by_shape=deform_log.by_shape("scaled_float32"),
-            planner_shapes=[dict(t, launches_x_ms_over_bound=excess(
+            timed_shapes=[dict(t, launches_x_ms_over_bound=excess(
                 t, deform_log.by_shape("scaled_float32")))
-                for t in form_times["scaled_float32"][1:]],
+                for t in form_times["scaled_float32"]],
+            floor_ms={"x".join(map(str, sh)): v
+                      for sh, v in floor_ms.items()},
+            div_mismatches=division,
             path_shapes=deform_shape_times),
         kernel_entry(
             "scaled_bfloat16", deform_bf16_launches,

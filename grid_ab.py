@@ -49,19 +49,16 @@ of it to ``--out`` as JSON.
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import json
 import os
 import statistics
 import sys
 import tempfile
 from concurrent.futures import ThreadPoolExecutor
-from pathlib import Path
 
 import chip_smoke as smoke
-from scan_ab import load_other
+from scan_ab import build_variant, load_other
 
-ROOT = Path(__file__).resolve().parent
 #: (source text, replacement) edits of each diagnostic build
 VARIANTS = {
     "one_record": (
@@ -119,22 +116,8 @@ INEXACT = ("one_record", "no_root")
 def variant_module(name: str):
     """This tree's cuda_svsdf module, under its own name, building the
     variant's source into build/grid_variants/<name>/."""
-    spec = importlib.util.spec_from_file_location(
-        f"grid_variant_{name}", ROOT / "svsdf_tpu_torch" / "ops" /
-        "cuda_svsdf.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    src = mod.SOURCE.read_text()
-    for old, new in VARIANTS[name]:
-        if src.count(old) != 1:
-            raise ValueError(f"variant {name}: source text not found once:"
-                             f" {old}")
-        src = src.replace(old, new)
-    mod.BUILD_DIR = ROOT / "build" / "grid_variants" / name
-    mod.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    mod.SOURCE = mod.BUILD_DIR / "coarse_scan.cu"
-    mod.SOURCE.write_text(src)
-    return mod
+    return build_variant(f"grid_variant_{name}", VARIANTS[name],
+                         f"grid_variants/{name}")
 
 
 def main() -> int:

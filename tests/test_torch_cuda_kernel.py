@@ -19,6 +19,7 @@ wrapper's argument checks, which run before anything touches the card.
 """
 
 import dataclasses
+import math
 from unittest import mock
 
 import numpy as np
@@ -293,9 +294,10 @@ def test_scaled_form_matches_plain_on_card(name, scan_dtype):
 
 @pytest.mark.cuda
 def test_scaled_table_past_shared_memory():
-    """3000 poses: 16 bytes a record fit the block's 48 KB, 20 with the
-    scale do not. The rigid scan runs; the scaled one is refused by the
-    C entry point and the wrapper raises, counting nothing."""
+    """3000 poses: 16 bytes a record fit the block's 48 KB, 24 with the
+    scale record (the scale and its reciprocal) do not. The rigid scan
+    runs; the scaled one is refused by the C entry point and the wrapper
+    raises, counting nothing."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
     inp = _inputs(1, 64, 3000, seed=0, device="cuda")
@@ -304,6 +306,111 @@ def test_scaled_table_past_shared_memory():
     with pytest.raises(RuntimeError, match="cudaError"):
         cs.coarse_scan(_scaled("sdHeart"), *inp, ts=_times(1, 3000, "cuda"))
     assert cs.coarse_scan.launches == before
+
+
+# -- the deformable float32 form: scale records, held neighbours ----------
+
+#: the deformable scenarios' robots (utils/fixtures.py), by body
+_ROBOTS = {"sdHeart": "deformable_heart", "sdRhombus": "deformable_rhombus",
+           "star": "deformable_star"}
+
+
+@pytest.mark.cuda
+def test_scale_division_is_exact():
+    """The form's quotients q / s (one reciprocal a pose, two fused
+    multiply-adds a quotient) equal the card's IEEE division at every
+    float32 dividend of the deformable schedules' divisors, the range
+    ends and subnormal scales, and at every pair of significands."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    assert cs.div_mismatches("cuda") == 0
+    assert cs.div_pair_mismatches("cuda") == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(_ROBOTS))
+def test_scaled_float32_at_path_shapes(name):
+    """Each deformable scenario's robot at the single plan's shapes
+    (1x768x128, 1x512x128: 4 poses a lane, neighbours by shuffle) and at
+    512x64x96 (neighbours recomputed), on inputs built to tie, at the
+    scenario's own schedule over a 40 s plan: bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    shape = fixtures.deformable_scenario(_ROBOTS[name]).shape
+    for b, m, k in ((1, 768, 128), (1, 512, 128), (512, 64, 96)):
+        _assert_form_equals_plain(
+            shape, _tie_inputs(b, m, k, seed=m + k, device="cuda"), None,
+            ts=_times(b, k, "cuda", horizon=40.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [*_ROBOTS, "Polygon", "Circle"])
+def test_scaled_float32_every_lane_count(name):
+    """Each S forced, K from 1 to 128: ceil(K / S) <= 4 (held neighbours)
+    and above (recomputed), K < S included; ties at lane boundaries,
+    argmin 0 and K-1; bit for bit against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    shape = _scaled(name, pre=(0.3, -0.2, 25.0))
+    for lanes in (1, 2, 4, 8, 16, 32):
+        for k in (1, 3, 37, 64, 128):
+            inp = _tie_inputs(3, 301, k, seed=k, device="cuda")
+            ts = _times(3, k, "cuda")
+            got = cs.launch(shape, *inp, lanes, *cs.block_shape(3, 301, lanes),
+                            scale=cs.pose_scale(shape, ts))
+            want = cs.coarse_scan_reference(shape, *inp, ts=ts)
+            _assert_bits_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(cs.SHAPE_IDS))
+def test_scaled_float32_range_ends_and_subnormal_scales(name):
+    """Scales that leave the reciprocal's range (just outside 2^-6 and 2^6,
+    subnormal, tiny) and that sit on its ends, and tiny cos and sin (the
+    dividends near zero and subnormal): the IEEE division's branch and
+    its edge, bit for bit against the plain model of the kernel's
+    algorithm (a tiny scale makes values overflow to NaN, which the
+    kernel's strict `<` never takes and torch.min would return)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    lo, hi = cs.FAST_SCALES
+    ends = [float(torch.nextafter(torch.tensor(v), torch.tensor(t)))
+            for v in (lo, hi) for t in (0.0, math.inf)] + [lo, hi]
+    schedules = [lambda t: 2.0 ** -130 * (1.0 + 0.5 * torch.sin(t)),
+                 lambda t: 2.0 ** -100 * (1.0 + 0.5 * torch.sin(t))]
+    schedules += [lambda t, v=v: torch.full_like(t, v) for v in ends]
+    for i, fn in enumerate(schedules):
+        shape = shapes.make_scaled_shape(name, fn)
+        for scale in (1.0, 2.0 ** -66, 2.0 ** -128):
+            inp = _tiny_inputs(2, 256, 40, scale, "cuda")
+            ts = _times(2, 40, "cuda")
+            for lanes in (cs.launch_geometry(2, 256, 40)[0], 16):
+                got = cs.launch(shape, *inp, lanes,
+                                *cs.block_shape(2, 256, lanes),
+                                scale=cs.pose_scale(shape, ts))
+                want = cs.coarse_scan_split_reference(shape, *inp, lanes,
+                                                      ts=ts)
+                _assert_bits_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [*_ROBOTS, "Polygon"])
+def test_scaled_float32_signed_zeros_and_nan(name):
+    """-0.0 and NaN dividends (points on the pose centres, NaN coordinates)
+    through the IEEE division's branch, at S = 1, the geometry's S and 32:
+    bit for bit against the plain model of the kernel's algorithm."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    shape = _scaled(name)
+    inp = _signed_zero_nan_inputs("cuda")
+    b, m = inp[0].shape[:2]
+    k = inp[1].shape[1]
+    ts = _times(b, k, "cuda")
+    for lanes in sorted({1, cs.launch_geometry(b, m, k)[0], 32}):
+        got = cs.launch(shape, *inp, lanes, *cs.block_shape(b, m, lanes),
+                        scale=cs.pose_scale(shape, ts))
+        want = cs.coarse_scan_split_reference(shape, *inp, lanes, ts=ts)
+        _assert_bits_equal(got, want)
 
 
 @pytest.mark.cuda

@@ -39,7 +39,7 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "svsdf_tpu_torch"
-SCRIPTS = ["chip_smoke", "scan_ab"]
+SCRIPTS = ["chip_smoke", "scan_ab", "grid_ab"]
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / f"{s}.py" for s in SCRIPTS]
 
 
