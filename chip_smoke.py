@@ -38,26 +38,29 @@ Phases, one line each (any failure raises and the exit code is not 0):
      and the plain version's time per call (CUDA events), printed in the
      kernel table's JSON line; the launch geometry of each timed shape
      and the bound's basis on lines of their own;
-  4. main path: plan_batch_staged at B=512, n=8, M=64, sdHeart,
-     PlannerConfig(mem_size=8), first at default_stages(40) — the JAX
-     package's bench.py configuration, whose scans run in bfloat16 —
-     then at default_stages(40, scan_dtype=None) (float32 scans): each
-     one warm-up, then 3 timed runs on fresh inputs, each closed by a
-     host readback, plans/s and the median cost; each form's launch
-     count over its run must be > 0. Then one more solve of each under
-     torch.profiler: the device's busy share and the kernels that fill
-     it;
+  4. main path: the bench's plans section in this process
+     (svsdf_tpu_torch.bench.plans_run, B=512 only): plan_batch_staged at
+     n=8, M=64, sdHeart, PlannerConfig(mem_size=8), first at
+     default_stages(40) — the JAX package's bench.py configuration, whose
+     scans run in bfloat16 — then at default_stages(40, scan_dtype=None)
+     (float32 scans): each one warm-up, then 3 timed runs on perturbed
+     inputs, each closed by a host readback, plans/s, the median cost
+     and its re-score on bench.HIFI; each form's launch count over its
+     run must be > 0. Then the bench's plans_profile section: one more
+     solve of each under torch.profiler, the device's busy share and the
+     kernels that fill it;
   5. checks: the same solve at B=32 with the kernel and with the plain
      scan on the card (median final cost within 1e-3 relative), and one
      cost/gradient evaluation on the card (float32) against the host
      (float64);
-  6. batched end to end: plan_batch_e2e at bench_e2e's setting (forest
+  6. batched end to end: the bench's e2e section in this process
+     (svsdf_tpu_torch.bench.bench_e2e): plan_batch_e2e on the forest
      map, sdHeart, B=512, n=8, 48 obstacles, default_stages(40):
-     bfloat16 scans, 2-D front end, no refine rounds) — one warm-up,
-     then 3 timed runs on fresh start/goal draws, each closed by a host
-     readback; every front end must reach its goal. Then one run under
-     torch.profiler, and the front end timed alone against a whole run.
-     The float32 variant (scan_dtype=None) follows, warm-up and 3 runs;
+     bfloat16 scans, 2-D front end, no refine rounds — one warm-up, then
+     3 timed runs on fresh start/goal draws, each closed by a host
+     readback (every front end must reach its goal), then the front end
+     timed alone against a whole run. Then one run under torch.profiler.
+     The float32 variant (scan_dtype=None) follows, the same section;
   7. online replanning: OnlineReplanner on each synthetic scenario with
      its default stages (default_stages_lowlat(50): bfloat16 scans; 3-D
      front end, route shaping, 2 certify-refine rounds), one replan each
@@ -85,7 +88,8 @@ Phases, one line each (any failure raises and the exit code is not 0):
      sdPie, sdPie2) on a path: one plan_batch_staged solve each at B=32
      (bench problem(8, 64, 32), default_stages(40, scan_dtype=None)), each
      with a finite median cost;
- 11. the grid query at bench.py::bench_grid_queries' settings: svsdf_grid
+ 11. the grid query, the bench's grid section in this process
+     (svsdf_tpu_torch.bench.bench_grid_queries): svsdf_grid
      of sdHeart along the 6-piece MINCO trajectory (bench.grid_setup) on
      256 x 256 points, SVSDFConfig(coarse_n=256, refine_rounds=3),
      with_inside=False; 8 batches a run, each with its axes perturbed by
@@ -207,12 +211,14 @@ import json
 import math
 import os
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
+
+from svsdf_tpu_torch.bench import (KERNEL_NAME, device_events, profile_solve,
+                                   smi_line)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -336,7 +342,6 @@ RUN_SCENARIOS_SVS = dict(coarse_n=128, refine_rounds=2, gsip_iters=6,
 #: tests/test_golden_scenarios.py's cost gate against the recorded row:
 #: lo * recorded < cost < hi * recorded
 COST_GATE = (0.3, 1.5)
-KERNEL_NAME = "coarse_scan_kernel"
 #: the mesh robots of phase 14: the analytic body whose zero contour is
 #: extruded into a prism .obj, and the half-width of the contour's grid
 MESH_ROBOTS = {"heart_prism": ("sdHeart", 6.0), "cylinder": ("Circle", 2.0)}
@@ -353,14 +358,6 @@ def say(phase: str, **kv) -> None:
     """One line of a phase, with the seconds since the script started."""
     kv["elapsed_s"] = round(time.perf_counter() - T_START, 2)
     print(f"[{phase}] " + json.dumps(kv), flush=True)
-
-
-def smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def scan_inputs(torch, b, m, k, seed):
@@ -443,18 +440,6 @@ def time_ms(torch, fn, reps=200):
     return start.elapsed_time(stop) / reps
 
 
-def device_events(torch, prof):
-    """(name, device microseconds) of every device activity a finished
-    torch.profiler session recorded, read from its raw trace: building
-    the profiler's own event tree (prof.events(), key_averages()) for the
-    ~200 k launches of one solve takes the host tens of seconds, and
-    minutes for a Planner.plan, for the same sums."""
-    cuda = torch.autograd.DeviceType.CUDA
-    return [(e.name(), (e.end_ns() - e.start_ns()) / 1e3)
-            for e in prof.profiler.kineto_results.events()
-            if e.device_type() == cuda]
-
-
 def device_ms(torch, fn, reps=50, tries=3):
     """torch.profiler over ``reps`` calls of ``fn``: (mean device time of
     one coarse-scan kernel launch in ms, launches seen). A session that
@@ -468,37 +453,11 @@ def device_ms(torch, fn, reps=50, tries=3):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        scan = [us for name, us in device_events(torch, prof)
+        scan = [us for name, us in device_events(prof)
                 if KERNEL_NAME in name]
         if scan and sum(scan) > 0:
             return sum(scan) / len(scan) / 1e3, len(scan)
     return None, 0
-
-
-def profile_solve(torch, run):
-    """One main-path solve under torch.profiler: wall seconds, summed
-    device kernel time, kernel launches, and the coarse-scan kernel's
-    and the five largest kernels' device time."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        wall = time.perf_counter() - t0
-    kernels = device_events(torch, prof)
-    busy_us = sum(us for _, us in kernels)
-    by_name = {}
-    for name, us in kernels:
-        n, total = by_name.get(name, (0, 0.0))
-        by_name[name] = (n + 1, total + us)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
-    scan = [v for k, v in by_name.items() if KERNEL_NAME in k]
-    return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
-            "device_busy_share": busy_us / 1e6 / wall,
-            "kernel_launches": len(kernels),
-            "scan_launches": sum(v[0] for v in scan),
-            "scan_device_s": sum(v[1] for v in scan) / 1e6,
-            "top": [{"name": k[:60], "launches": v[0], "device_s": v[1] / 1e6}
-                    for k, v in top]}
 
 
 def scan_bound_ms(shape, b, m, k, bf16=False):
@@ -620,6 +579,30 @@ class ShapeLog:
             shapes=self.summary(), launches=self.by_shape(),
             max_abs_err=worst, bitwise=True)
         return worst
+
+
+class SectionLog(ShapeLog):
+    """A ShapeLog around one of the bench's sections (svsdf_tpu_torch.bench)
+    that stops recording when the section reads its launch counts
+    (bench._check_launched): it sees the launches the counts cover, the
+    warm-up and the timed runs, and not the re-score's nor a profiled
+    run's."""
+
+    def __enter__(self):
+        from svsdf_tpu_torch import bench
+        super().__enter__()
+        read = bench._check_launched
+
+        def closing(*args):
+            self.cs._launch = self._orig
+            return read(*args)
+        self._patch = mock.patch.object(bench, "_check_launched", closing)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+        super().__exit__(*exc)
 
 
 def time_scan(torch, cs, shape, inp, scan_dtype, ts, bound):
@@ -1269,7 +1252,7 @@ def deployment_loop(torch, rp, sc, fleet, scene, memo_cases, dev,
                     sync()
                 traced.append((int(traj_server.n_ticks(
                     prefix, traj_server.TrajServerConfig())[0]),
-                    device_events(torch, tprof)))
+                    device_events(tprof)))
             (t5, k5), (t10, k10) = traced
             per_tick = (len(k10) - len(k5)) / (t10 - t5)
             ticks = log.pos.shape[1]
@@ -1426,8 +1409,11 @@ def main() -> int:
     memo_root = tempfile.TemporaryDirectory()
     os.environ["SVSDF_TORCH_CACHE_DIR"] = memo_root.name
     from svsdf_tpu_torch import convert
-    from svsdf_tpu_torch.bench import (BENCH_MEM_SIZE, e2e_draws, e2e_setup,
-                                       grid_setup, problem, write_prism_obj)
+    from svsdf_tpu_torch.bench import (BENCH_MEM_SIZE, bench_e2e,
+                                       bench_grid_queries,
+                                       bench_plans_profile, e2e_draws,
+                                       e2e_setup, grid_setup, plans_run,
+                                       problem, write_prism_obj)
     from svsdf_tpu_torch.models import mesh_sdf, shapes
     from svsdf_tpu_torch.ops import cuda_svsdf as cs
     from svsdf_tpu_torch.ops import kernels as kops
@@ -1665,64 +1651,35 @@ def main() -> int:
         polygon_bf16_ops_per_eval=OPS_POSE)
 
     # -- 4. main path --------------------------------------------------
+    # the bench's plans section (svsdf_tpu_torch.bench.plans_run) in this
+    # process: it resets the counts, solves, reads them and re-scores; the
+    # kernel is then held at every shape; then its plans_profile section
     n, m_obs, batch, iters = 8, 64, 512, 40
     cfg = PlannerConfig(mem_size=BENCH_MEM_SIZE)
-    h, tl, obs, x0 = problem(n, m_obs, batch)
-    prob, x0_t = convert.problem_from_numpy(h, tl, obs, x0)
 
-    def main_path(stages_, form, seed):
-        """One warm-up and 3 timed solves at ``stages_``, counted from 0;
-        the kernel then held at every shape the path launched. Returns
-        (median cost, the path's launches, its ShapeLog)."""
-        cs.reset_launches()
-        with ShapeLog(cs) as log:
-            out = pb.plan_batch_staged(heart, x0_t, prob, cfg, stages_, n)
-            float(out.cost.sum())
-            rng = np.random.default_rng(1)
-            walls, costs, n_iters = [], [], []
-            for _ in range(3):
-                xx = x0_t + torch.as_tensor(
-                    rng.uniform(-1e-3, 1e-3, x0.shape).astype(np.float32),
-                    device="cuda")
-                t0 = time.perf_counter()
-                out = pb.plan_batch_staged(heart, xx, prob, cfg, stages_, n)
-                float(out.cost.sum())
-                walls.append(time.perf_counter() - t0)
-                costs.append(float(out.cost.median()))
-                n_iters.append(float(out.n_iters.float().mean()))
-        total = cs.coarse_scan.launches
-        by_form = dict(cs.coarse_scan.form_launches)
-        launches = by_form[form]
-        if launches <= 0:
-            raise AssertionError(f"the main path ({form} scans) launched no "
-                                 "coarse-scan kernel of that form")
+    def main_path(scan_dtype, form, seed):
+        """plans_run and bench_plans_profile at ``scan_dtype`` (B=512
+        only). Returns (median cost, the path's launches, its ShapeLog, the
+        last run's trajectories)."""
+        with SectionLog(cs) as log:
+            res, out = plans_run(n, m_obs, iters, scan_dtype, (batch,))
+        launches = res["scan_launches"][form]
         log.check(torch, f"main {form}", seed=seed)
-        if not (torch.isfinite(out.cost).all()
-                and torch.isfinite(out.opt_x).all()
-                and out.opt_x.shape == (batch, 4 * n - 3)
-                and out.traj.coeffs.shape == (batch, n, 6, 3)):
-            raise AssertionError("main path output not finite / wrong shape")
-        wall = statistics.median(walls)
-        say("main_path", scan=form, B=batch, n=n, M=m_obs, iters=iters,
-            wall_s=walls, median_wall_s=wall, plans_per_s=batch / wall,
-            median_final_cost=statistics.median(costs),
-            mean_n_iters_last_stage=statistics.mean(n_iters),
-            kernel_launches=total, form_launches=by_form,
-            launches_per_solve=launches / 4)
+        say("main_path", B=batch, n=n, M=m_obs,
+            median_wall_s=res.pop("plan_batch_wall_s"),
+            kernel_launches=sum(res["scan_launches"].values()),
+            launches_per_solve=launches / 4, **res)
         # where one solve's time goes: device busy share and kernel counts
-        say("main_path_profile", scan=form, B=batch, **profile_solve(
-            torch, lambda: float(pb.plan_batch_staged(
-                heart, x0_t, prob, cfg, stages_, n).cost.sum())))
-        return statistics.median(costs), launches, log, out.traj
+        say("main_path_profile", **bench_plans_profile(scan_dtype, (batch,)))
+        return res["median_final_cost"], launches, log, out.traj
 
     # the JAX package's bench.py configuration (bfloat16 scans), then the
     # float32 variant the earlier readings were taken at; phase 15 flies
     # the bfloat16 run's last trajectories
     bf16_cost, bf16_launches, bf16_log, fleet = main_path(
-        pb.default_stages(iters), "bfloat16", seed=1100)
+        "bfloat16", "bfloat16", seed=1100)
     stages = pb.default_stages(iters, scan_dtype=None)
-    main_cost, launches, main_log, _ = main_path(stages, "float32",
-                                                 seed=1000)
+    main_cost, launches, main_log, _ = main_path(None, "float32", seed=1000)
 
     # -- 5. checks -----------------------------------------------------
     small = 32
@@ -1764,71 +1721,41 @@ def main() -> int:
         return pb.plan_batch_e2e(e2e.shape, e2e.feas, e2e.occ_pts, s, g, cfg,
                                  stages_, n_e, obs_e, res_e, xy_min_e, **kw)
 
-    def e2e_path(stages_, form, seed):
-        """One warm-up and 3 timed runs at ``stages_`` on fresh draws,
-        counted from 0; the kernel then held at every shape the path
-        launched. Returns (the path's launches by form, its ShapeLog, the
-        last draws)."""
-        rng = np.random.default_rng(0)
-        cs.reset_launches()
-        with ShapeLog(cs) as log:
-            out = run_e2e(*e2e_draws(e2e.cells, batch_e, rng), stages_)
-            float(out.cost.sum())
-            walls, ok_shares, outs = [], [], []
-            for _ in range(3):
-                s, g = e2e_draws(e2e.cells, batch_e, rng)
-                t0 = time.perf_counter()
-                out = run_e2e(s, g, stages_)
-                float(out.cost.sum())
-                walls.append(time.perf_counter() - t0)
-                ok_shares.append(float(out.front_ok.float().mean()))
-                outs.append(out)
-        total = cs.coarse_scan.launches
-        by_form = dict(cs.coarse_scan.form_launches)
-        launches_ = by_form[form]
-        if launches_ <= 0:
-            raise AssertionError(f"the e2e path ({form} scans) launched no "
-                                 "coarse-scan kernel of that form")
+    def e2e_path(scan_dtype, form, seed):
+        """The bench's e2e section (svsdf_tpu_torch.bench.bench_e2e) at
+        ``scan_dtype`` in this process: it resets the counts, runs, and
+        reads them; the kernel is then held at every shape the path
+        launched. Returns (the path's launches by form, its ShapeLog)."""
+        with SectionLog(cs) as log:
+            res = bench_e2e(scan_dtype)
+        by_form = res["scan_launches"]
         log.check(torch, f"e2e {form}", seed=seed)
-        if min(ok_shares) < 1.0:
-            raise AssertionError(f"e2e front end missed goals: {ok_shares}")
-        for o in outs:
-            if not (torch.isfinite(o.cost).all() and torch.isfinite(o.x).all()
-                    and torch.isfinite(o.cert_min).all()
-                    and o.coeffs.shape == (batch_e, n_e, 6, 3)):
-                raise AssertionError("e2e output not finite / wrong shape")
-        wall = statistics.median(walls)
-        say("e2e", scan=form, B=batch_e, n=n_e, n_obs=obs_e, iters=iters,
-            wall_s=walls, median_wall_s=wall, e2e_plans_per_s=batch_e / wall,
-            front_ok_share=ok_shares,
-            median_cost=statistics.median(float(o.cost.median())
-                                          for o in outs),
-            median_cert_min=statistics.median(float(o.cert_min.median())
-                                              for o in outs),
-            kernel_launches=total, form_launches=by_form,
-            launches_per_run=launches_ / 4)
-        return by_form, log, (s, g)
+        if res["plan_batch_size"] != batch_e:
+            raise AssertionError(f"the e2e path ran at B="
+                                 f"{res['plan_batch_size']}, not {batch_e}")
+        if min(res["front_ok_share"]) < 1.0:
+            raise AssertionError("e2e front end missed goals: "
+                                 f"{res['front_ok_share']}")
+        front = {k: res.pop(k) for k in ("front_end_s", "whole_s",
+                                         "front_end_share")}
+        say("e2e", B=batch_e, n=n_e, n_obs=obs_e, iters=iters,
+            median_wall_s=statistics.median(res["wall_s"]),
+            e2e_plans_per_s=res.pop("e2e_per_s"),
+            kernel_launches=sum(by_form.values()),
+            launches_per_run=by_form[form] / 4, **res)
+        # the front end alone against whole runs, alternated
+        say("e2e_front_end", scan=form, **front,
+            solve_and_certificate_share=1.0 - front["front_end_share"])
+        return by_form, log
 
     # bench.py::bench_e2e's configuration: default_stages(40), bfloat16
-    # scans
+    # scans; one more run under the profiler; then the float32 variant
     e2e_stages = pb.default_stages(iters)
-    e2e_by_form, e2e_log, (s, g) = e2e_path(e2e_stages, "bfloat16",
-                                            seed=2000)
+    e2e_by_form, e2e_log = e2e_path("bfloat16", "bfloat16", seed=2000)
+    s, g = e2e_draws(e2e.cells, batch_e, np.random.default_rng(0))
     say("e2e_profile", scan="bfloat16", B=batch_e, **profile_solve(
-        torch, lambda: float(run_e2e(s, g, e2e_stages).cost.sum())))
-    # the front end alone against whole runs, alternated
-    fronts, wholes = [], []
-    for _ in range(2):
-        fronts.append(timed(torch, lambda: pb.front_end(
-            e2e.feas, e2e.occ_pts, s, g, cfg, n_e, obs_e, res_e,
-            xy_min_e))[1])
-        wholes.append(timed(torch, lambda: run_e2e(s, g, e2e_stages))[1])
-    say("e2e_front_end", front_end_s=fronts, whole_s=wholes,
-        front_end_share=statistics.median(fronts) / statistics.median(wholes),
-        solve_and_certificate_share=1.0 - statistics.median(fronts)
-        / statistics.median(wholes))
-    # the float32 variant
-    e2e_f32_by_form, e2e_f32_log, _ = e2e_path(stages, "float32", seed=2500)
+        lambda: float(run_e2e(s, g, e2e_stages).cost.sum())))
+    e2e_f32_by_form, e2e_f32_log = e2e_path(None, "float32", seed=2500)
 
     # -- 7. online replanning ------------------------------------------
     # the JAX package's settings: bfloat16 scans
@@ -2036,7 +1963,7 @@ def main() -> int:
     plan_log.check(torch, "planner", seed=4000)
     planner, sc = profiled
     say("planner_profile", scenario=sc.name, **profile_solve(
-        torch, lambda: planner.plan(sc.start, sc.goal)))
+        lambda: planner.plan(sc.start, sc.goal)))
 
     # -- 10. the other bodies on a staged solve ------------------------
     h10, t10, o10, x10 = problem(8, 64, 32)
@@ -2078,18 +2005,11 @@ def main() -> int:
                                    gq.ys + d[1], svs_grid).sum()
         return float(acc)
 
-    cs.reset_launches()
-    with ShapeLog(cs) as grid_log:
-        grid_run(shifts)
-        walls = []
-        for i in range(3):
-            walls.append(timed(torch, lambda: grid_run(
-                shifts + 1e-5 * (i + 1)))[1])
-    grid_launches = cs.coarse_scan.launches
-    if grid_launches <= 0:
-        raise AssertionError("the grid query launched no coarse-scan kernel")
+    with SectionLog(cs) as grid_log:
+        grid_res = bench_grid_queries()
+    grid_launches = sum(grid_res["scan_launches"].values())
     grid_log.check(torch, "grid", seed=6000)
-    grid_prof = profile_solve(torch, lambda: grid_run(shifts))
+    grid_prof = profile_solve(lambda: grid_run(shifts))
     field = svsdf_grid(gq.shape, gq.traj, gq.xs, gq.ys, svs_grid)
     gh = grid_setup(device="cpu", dtype=torch.float64)
     t0 = time.perf_counter()
@@ -2100,13 +2020,12 @@ def main() -> int:
             and bool(torch.isfinite(field).all()) and grid_err <= 1e-3):
         raise AssertionError(f"grid query field: shape {tuple(field.shape)}, "
                              f"max abs err vs host float64 {grid_err}")
-    grid_wall = statistics.median(walls)
     grid_field = (gq.xs.cpu().numpy(), gq.ys.cpu().numpy(),
                   field[0].cpu().numpy())
     say("grid_query", points=n_grid, batches_per_run=grid_batches,
         coarse_n=svs_grid.coarse_n, refine_rounds=svs_grid.refine_rounds,
-        wall_s=walls, queries_per_s=grid_batches * n_grid / grid_wall,
-        grid_batch_s=grid_wall / grid_batches, kernel_launches=grid_launches,
+        wall_s=grid_res["wall_s"], queries_per_s=grid_res["queries_per_s"],
+        grid_batch_s=grid_res["grid_batch_s"], kernel_launches=grid_launches,
         scan_share_of_device=grid_prof["scan_device_s"]
         / grid_prof["device_busy_s"], profile=grid_prof,
         max_abs_err_vs_host_f64=grid_err, host_f64_s=host_s)
@@ -2179,7 +2098,11 @@ def main() -> int:
     lmbm_log.check(torch, "lmbm planner", seed=8000)
 
     # -- 14. mesh robots -----------------------------------------------
-    # (c) the main path with the sdHeart prism, bfloat16 then float32
+    # (c) the main path with the sdHeart prism, bfloat16 then float32, on
+    # phase 4's problem
+    h, tl, obs, x0 = problem(n, m_obs, batch)
+    prob, x0_t = convert.problem_from_numpy(h, tl, obs, x0)
+
     def mesh_main_path(stages_, form, seed, runs):
         """Phase 4's solve with the mesh robot: one warm-up and ``runs``
         timed runs, counted from 0, then the kernel held at every shape
@@ -2322,7 +2245,7 @@ def main() -> int:
     say("mesh_grid_query", robot=heart_mesh.name, points=n_grid,
         batches_per_run=grid_batches, wall_s=walls,
         queries_per_s=grid_batches * n_grid / wall,
-        analytic_sdHeart_queries_per_s=grid_batches * n_grid / grid_wall,
+        analytic_sdHeart_queries_per_s=grid_res["queries_per_s"],
         kernel_launches=mesh_grid_launches,
         max_abs_err_vs_host_f64=grid_err, host_f64_s=host_s)
 

@@ -5,6 +5,10 @@
     ``svsdf_tpu`` module;
   * no source file of the port imports JAX or names ``svsdf_tpu.``
     outside comments;
+  * the port's benchmark entry point, ``python -m svsdf_tpu_torch.bench``,
+    run with ``--help`` in a fresh interpreter, loads no ``jax``, no
+    ``svsdf_tpu``, not the repo's root ``bench`` module and nothing of
+    ``scripts``, and its source names none of them;
   * an entry point called without ``device`` runs on CUDA, so it raises
     where CUDA is absent instead of falling back to the host.
 """
@@ -39,7 +43,7 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "svsdf_tpu_torch"
-SCRIPTS = ["chip_smoke", "scan_ab", "grid_ab"]
+SCRIPTS = ["chip_smoke", "scan_ab", "grid_ab", "plans_ab"]
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / f"{s}.py" for s in SCRIPTS]
 
 
@@ -110,6 +114,35 @@ def test_source_names_no_jax(path):
     code = _code_without_comments(path)
     assert not re.search(r"\bimport\s+jax\b|\bfrom\s+jax\b", code)
     assert not re.search(r"\bsvsdf_tpu\.", code)
+
+
+_BENCH_PROBE = """
+import json, runpy, sys
+sys.argv = ["svsdf_tpu_torch.bench", "--help"]
+try:
+    runpy.run_module("svsdf_tpu_torch.bench", run_name="__main__",
+                     alter_sys=True)
+except SystemExit as e:
+    assert e.code == 0, e.code
+print(json.dumps(sorted(
+    m for m in sys.modules
+    if m in ("jax", "svsdf_tpu", "bench", "scripts")
+    or m.startswith(("jax.", "svsdf_tpu.", "scripts."))
+)))
+"""
+
+
+def test_bench_entry_point_loads_no_jax_nor_the_jax_bench():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", _BENCH_PROBE], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=300, check=True)
+    lines = out.stdout.strip().splitlines()
+    assert any("--device" in ln for ln in lines)          # the help printed
+    assert json.loads(lines[-1]) == []
+    code = _code_without_comments(PKG / "bench.py")
+    assert not re.search(r"\b(import|from)\s+(bench|scripts)\b", code)
+    assert "scripts." not in code
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
