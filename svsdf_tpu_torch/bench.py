@@ -73,6 +73,7 @@ import numpy as np
 import torch
 
 from svsdf_tpu_torch.ops.svsdf import SVSDFConfig
+from svsdf_tpu_torch.utils.profiling import is_device_activity
 from svsdf_tpu_torch.utils.transforms import backward_t
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -252,11 +253,12 @@ def device_events(prof):
     torch.profiler session recorded, read from its raw trace: building
     the profiler's own event tree (prof.events(), key_averages()) for the
     ~200 k launches of one solve takes the host tens of seconds, and
-    minutes for a Planner.plan, for the same sums."""
-    cuda = torch.autograd.DeviceType.CUDA
+    minutes for a Planner.plan, for the same sums. A caller's
+    ``record_function`` range, which the profiler also draws on the
+    device's timeline, is not device work and is left out."""
     return [(e.name(), (e.end_ns() - e.start_ns()) / 1e3)
             for e in prof.profiler.kineto_results.events()
-            if e.device_type() == cuda]
+            if is_device_activity(e)]
 
 
 def profile_solve(run):

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from svsdf_tpu_torch.ops.banded import LBW, NDIAG
+from svsdf_tpu_torch.utils.profiling import span
 
 BS = 6   # block size (quintic pieces: 6 coefficients)
 
@@ -199,19 +200,21 @@ class _BandedSolveCR(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, x_bar):
-        bands, x = ctx.saved_tensors
-        n = x.shape[1]
-        rhs_bar = _cr_core(bands, x_bar.contiguous(), REFINE, True)
-        i = torch.arange(n, device=x.device)[:, None]
-        d = torch.arange(NDIAG, device=x.device)[None, :]
-        j = i + d - LBW
-        valid = (j >= 0) & (j < n)
-        outer = torch.matmul(rhs_bar, x.transpose(-1, -2))   # (B, n, n)
-        jc = torch.clamp(j, 0, n - 1).expand(x.shape[0], n, NDIAG)
-        gathered = torch.gather(outer, 2, jc)
-        bands_bar = torch.where(valid, -gathered,
-                                torch.zeros_like(gathered))
-        return bands_bar, rhs_bar
+        # on a CUDA tensor the autograd engine's own thread runs this
+        with span("minco.backward"):
+            bands, x = ctx.saved_tensors
+            n = x.shape[1]
+            rhs_bar = _cr_core(bands, x_bar.contiguous(), REFINE, True)
+            i = torch.arange(n, device=x.device)[:, None]
+            d = torch.arange(NDIAG, device=x.device)[None, :]
+            j = i + d - LBW
+            valid = (j >= 0) & (j < n)
+            outer = torch.matmul(rhs_bar, x.transpose(-1, -2))  # (B, n, n)
+            jc = torch.clamp(j, 0, n - 1).expand(x.shape[0], n, NDIAG)
+            gathered = torch.gather(outer, 2, jc)
+            bands_bar = torch.where(valid, -gathered,
+                                    torch.zeros_like(gathered))
+            return bands_bar, rhs_bar
 
 
 def banded_solve_cr(bands, rhs):

@@ -26,6 +26,7 @@ import torch
 
 from svsdf_tpu_torch.ops.banded import LBW, NDIAG
 from svsdf_tpu_torch.ops.block_cr import banded_solve_cr
+from svsdf_tpu_torch.utils.profiling import span
 from svsdf_tpu_torch.utils.trajectory import Trajectory, ipow
 
 
@@ -240,10 +241,11 @@ def solve(times, head, tail, waypoints) -> Trajectory:
     """Waypoints + times -> batched quintic Trajectory. Differentiable
     with respect to times and waypoints (and head/tail)."""
     nb, n = times.shape
-    bands, rhs = build_bands_norm(times, head, tail, waypoints)
-    ch = banded_solve_cr(bands, rhs).reshape(nb, n, 6, -1)
-    tinv = torch.stack([ipow(times, -k) for k in range(6)], dim=2)  # (B,N,6)
-    return Trajectory(coeffs=ch * tinv[..., None], durations=times)
+    with span("minco.solve"):
+        bands, rhs = build_bands_norm(times, head, tail, waypoints)
+        ch = banded_solve_cr(bands, rhs).reshape(nb, n, 6, -1)
+        tinv = torch.stack([ipow(times, -k) for k in range(6)], dim=2)
+        return Trajectory(coeffs=ch * tinv[..., None], durations=times)
 
 
 def solve_raw(times, head, tail, waypoints) -> Trajectory:

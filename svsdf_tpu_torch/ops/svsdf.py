@@ -25,6 +25,7 @@ import torch
 
 from svsdf_tpu_torch.ops import cuda_svsdf
 from svsdf_tpu_torch.utils import trajectory as trj
+from svsdf_tpu_torch.utils.profiling import host_bool, span
 
 PI = math.pi
 
@@ -200,56 +201,59 @@ def tstar_search_batch(shape, traj, points, cfg: SVSDFConfig,
     through the argmin's neighbours, otherwise wide refinement rounds
     sample refine_n times across the bracketing cell."""
     total = traj.total_duration                              # (B,)
-    if table is None:
-        table = make_pose_table(traj, cfg.coarse_n)
-    best, i, fm, fp = cuda_svsdf.coarse_scan(
-        shape, points, table.xy, table.cos, table.sin,
-        scan_dtype=cfg.scan_dtype, ts=table.ts)
-    k = table.ts.shape[1]
-    dt = (total / (k - 1))[:, None]                          # (B, 1)
-    t0 = i.to(points.dtype) * dt
-    tot = total[:, None]
+    with span("oracle.scan"):
+        if table is None:
+            table = make_pose_table(traj, cfg.coarse_n)
+        best, i, fm, fp = cuda_svsdf.coarse_scan(
+            shape, points, table.xy, table.cos, table.sin,
+            scan_dtype=cfg.scan_dtype, ts=table.ts)
+    with span("oracle.refine"):
+        k = table.ts.shape[1]
+        dt = (total / (k - 1))[:, None]                      # (B, 1)
+        t0 = i.to(points.dtype) * dt
+        tot = total[:, None]
 
-    if cfg.refine_rounds == 0:
-        # vertex of the parabola through (f[i-1], f[i], f[i+1])
-        denom = fm - 2.0 * best + fp
-        pos = denom > 1e-9
-        delta = torch.where(
-            pos, 0.5 * (fm - fp) / torch.where(pos, denom,
-                                               torch.ones_like(denom)),
-            torch.zeros_like(denom))
-        delta = _clip(delta, -1.0, 1.0)
-        interior = (i > 0) & (i < k - 1) & pos
-        t_star = torch.where(interior, _clip(t0 + delta * dt, 0.0, tot), t0)
-        f_star = torch.where(interior, best - 0.25 * (fm - fp) * delta,
-                             best)
-        return torch.minimum(f_star, best), t_star
+        if cfg.refine_rounds == 0:
+            # vertex of the parabola through (f[i-1], f[i], f[i+1])
+            denom = fm - 2.0 * best + fp
+            pos = denom > 1e-9
+            delta = torch.where(
+                pos, 0.5 * (fm - fp) / torch.where(pos, denom,
+                                                   torch.ones_like(denom)),
+                torch.zeros_like(denom))
+            delta = _clip(delta, -1.0, 1.0)
+            interior = (i > 0) & (i < k - 1) & pos
+            t_star = torch.where(interior, _clip(t0 + delta * dt, 0.0, tot),
+                                 t0)
+            f_star = torch.where(interior, best - 0.25 * (fm - fp) * delta,
+                                 best)
+            return torch.minimum(f_star, best), t_star
 
-    lo = _clip(t0 - dt, 0.0, tot)
-    hi = _clip(t0 + dt, 0.0, tot)
+        lo = _clip(t0 - dt, 0.0, tot)
+        hi = _clip(t0 + dt, 0.0, tot)
 
-    sn = max(cfg.refine_n, 4)
-    # in the trajectory's dtype, which the obstacle points need not share
-    u = linspace(total.new_ones((1,)), sn)[0]                # (S,)
-    t_star = t0
-    if cfg.refine_interp_n > 0:
-        ft = make_fine_table(traj, cfg.refine_interp_n)
-        sample = lambda tc: _sdf_points_times_interp(shape, ft, total,
-                                                     points, tc)
-    else:
-        sample = lambda tc: _sdf_points_times(shape, traj, points, tc)
-    for _ in range(max(1, cfg.refine_rounds)):
-        t_cand = lo[..., None] + (hi - lo)[..., None] * u     # (B, M, S)
-        f = sample(t_cand)
-        fj, j = torch.min(f, dim=-1)
-        tj = torch.gather(t_cand, -1, j[..., None])[..., 0]
-        better = fj < best
-        best = torch.minimum(fj, best)
-        t_star = torch.where(better, tj, t_star)
-        h = (hi - lo) / (sn - 1)
-        lo = _clip(tj - h, 0.0, tot)
-        hi = _clip(tj + h, 0.0, tot)
-    return best, t_star
+        sn = max(cfg.refine_n, 4)
+        # in the trajectory's dtype, which the obstacle points need not share
+        u = linspace(total.new_ones((1,)), sn)[0]            # (S,)
+        t_star = t0
+        if cfg.refine_interp_n > 0:
+            ft = make_fine_table(traj, cfg.refine_interp_n)
+            sample = lambda tc: _sdf_points_times_interp(shape, ft, total,
+                                                         points, tc)
+        else:
+            sample = lambda tc: _sdf_points_times(shape, traj, points, tc)
+        for _ in range(max(1, cfg.refine_rounds)):
+            t_cand = lo[..., None] + (hi - lo)[..., None] * u  # (B, M, S)
+            f = sample(t_cand)
+            fj, j = torch.min(f, dim=-1)
+            tj = torch.gather(t_cand, -1, j[..., None])[..., 0]
+            better = fj < best
+            best = torch.minimum(fj, best)
+            t_star = torch.where(better, tj, t_star)
+            h = (hi - lo) / (sn - 1)
+            lo = _clip(tj - h, 0.0, tot)
+            hi = _clip(tj + h, 0.0, tot)
+        return best, t_star
 
 
 def _grad_world_at(shape, traj, p, t):
@@ -304,58 +308,59 @@ def _gsip_inside(shape, traj, p, t_star0, cfg: SVSDFConfig,
     centred at p inside the swept volume; returns (-r*, t*, world
     gradient toward the binding boundary point). ``table`` is the
     shared gsip_coarse_n pose table."""
-    inner_cfg = dataclasses.replace(
-        cfg, coarse_n=cfg.gsip_coarse_n,
-        refine_rounds=cfg.gsip_refine_rounds,
-        refine_n=min(cfg.refine_n, 16))
-    if table is None:
-        table = make_pose_table(traj, cfg.gsip_coarse_n)
-    nb, npt = t_star0.shape
+    with span("oracle.gsip"):
+        inner_cfg = dataclasses.replace(
+            cfg, coarse_n=cfg.gsip_coarse_n,
+            refine_rounds=cfg.gsip_refine_rounds,
+            refine_n=min(cfg.refine_n, 16))
+        if table is None:
+            table = make_pose_table(traj, cfg.gsip_coarse_n)
+        nb, npt = t_star0.shape
 
-    vel = _pick_gsip_velocity(traj, t_star0)
-    theta_init = torch.atan2(vel[..., 0], -vel[..., 1])
+        vel = _pick_gsip_velocity(traj, t_star0)
+        theta_init = torch.atan2(vel[..., 0], -vel[..., 1])
 
-    carry = (torch.full_like(t_star0, cfg.gsip_r0), theta_init,
-             theta_init, t_star0,
-             torch.zeros_like(t_star0, dtype=torch.bool))
+        carry = (torch.full_like(t_star0, cfg.gsip_r0), theta_init,
+                 theta_init, t_star0,
+                 torch.zeros_like(t_star0, dtype=torch.bool))
 
-    def gsip_iter(carry, theta_res, n_samp):
-        r, theta0, theta_star, t_star, done = carry
-        steps = torch.arange(n_samp, dtype=theta0.dtype, device=p.device)
-        thetas = theta0[..., None] + theta_res * steps        # (B, P, S)
-        ys = p[:, :, None, :] + r[..., None, None] * torch.stack(
-            [torch.cos(thetas), torch.sin(thetas)], -1)
-        g, ts = tstar_search_batch(shape, traj,
-                                   ys.reshape(nb, npt * n_samp, 2),
-                                   inner_cfg, table=table)
-        g = g.reshape(nb, npt, n_samp)
-        ts = ts.reshape(nb, npt, n_samp)
-        jstar = torch.argmax(g, dim=-1, keepdim=True)
-        max_g = torch.gather(g, -1, jstar)[..., 0]
-        new_r = r - max_g
-        new_theta_star = torch.gather(thetas, -1, jstar)[..., 0]
-        new_t_star = torch.gather(ts, -1, jstar)[..., 0]
-        new_done = done | (torch.abs(max_g) < cfg.gsip_tol)
-        return (torch.where(done, r, new_r),
-                torch.where(done, theta0, new_theta_star),
-                torch.where(done, theta_star, new_theta_star),
-                torch.where(done, t_star, new_t_star),
-                new_done)
+        def gsip_iter(carry, theta_res, n_samp):
+            r, theta0, theta_star, t_star, done = carry
+            steps = torch.arange(n_samp, dtype=theta0.dtype, device=p.device)
+            thetas = theta0[..., None] + theta_res * steps    # (B, P, S)
+            ys = p[:, :, None, :] + r[..., None, None] * torch.stack(
+                [torch.cos(thetas), torch.sin(thetas)], -1)
+            g, ts = tstar_search_batch(shape, traj,
+                                       ys.reshape(nb, npt * n_samp, 2),
+                                       inner_cfg, table=table)
+            g = g.reshape(nb, npt, n_samp)
+            ts = ts.reshape(nb, npt, n_samp)
+            jstar = torch.argmax(g, dim=-1, keepdim=True)
+            max_g = torch.gather(g, -1, jstar)[..., 0]
+            new_r = r - max_g
+            new_theta_star = torch.gather(thetas, -1, jstar)[..., 0]
+            new_t_star = torch.gather(ts, -1, jstar)[..., 0]
+            new_done = done | (torch.abs(max_g) < cfg.gsip_tol)
+            return (torch.where(done, r, new_r),
+                    torch.where(done, theta0, new_theta_star),
+                    torch.where(done, theta_star, new_theta_star),
+                    torch.where(done, t_star, new_t_star),
+                    new_done)
 
-    for k in range(cfg.gsip_iters):
-        n_samp = min(int(math.ceil(2.0 * PI / _GSIP_THETA_RES[k])),
-                     cfg.gsip_max_samples)
-        carry = gsip_iter(carry, _GSIP_THETA_RES[k], n_samp)
-    r_star, _, theta_star, t_star, _ = carry
+        for k in range(cfg.gsip_iters):
+            n_samp = min(int(math.ceil(2.0 * PI / _GSIP_THETA_RES[k])),
+                         cfg.gsip_max_samples)
+            carry = gsip_iter(carry, _GSIP_THETA_RES[k], n_samp)
+        r_star, _, theta_star, t_star, _ = carry
 
-    corner = p + r_star[..., None] * torch.stack(
-        [torch.cos(theta_star), torch.sin(theta_star)], -1)
-    gdir = corner - p
-    gnorm = _vnorm(gdir)[..., None]
-    grad_world = torch.where(gnorm > 1e-12,
-                             gdir / torch.clamp_min(gnorm, 1e-12),
-                             torch.zeros_like(gdir))
-    return -r_star, t_star, grad_world
+        corner = p + r_star[..., None] * torch.stack(
+            [torch.cos(theta_star), torch.sin(theta_star)], -1)
+        gdir = corner - p
+        gnorm = _vnorm(gdir)[..., None]
+        grad_world = torch.where(gnorm > 1e-12,
+                                 gdir / torch.clamp_min(gnorm, 1e-12),
+                                 torch.zeros_like(gdir))
+        return -r_star, t_star, grad_world
 
 
 def _take(a, idx):
@@ -391,7 +396,7 @@ def svsdf_query(shape, traj: trj.Trajectory, points,
 
     inside = sdf < 0.0
     plan_inside = torch.any(inside, dim=1)                     # (B,)
-    if not bool(torch.any(plan_inside)):
+    if not host_bool(torch.any(plan_inside), "svsdf.inside"):
         return SVSDFResult(sdf, t_star, grad_world)
 
     gsip_table = make_pose_table(traj, cfg.gsip_coarse_n)
@@ -427,9 +432,10 @@ def svsdf_grid(shape, traj: trj.Trajectory, xs, ys,
                with_inside: bool = False):
     """Dense SVSDF field over a 2-D grid for each plan: xs (X,), ys (Y,)
     -> (B, X, Y)."""
-    gx, gy = torch.meshgrid(xs, ys, indexing="ij")
-    pts = torch.stack([gx.reshape(-1), gy.reshape(-1)], dim=-1)
-    b = traj.durations.shape[0]
-    pts = pts[None].expand(b, -1, -1).contiguous()
-    res = svsdf_query(shape, traj, pts, cfg, with_inside=with_inside)
-    return res.sdf.reshape(b, len(xs), len(ys))
+    with span("oracle.grid"):
+        gx, gy = torch.meshgrid(xs, ys, indexing="ij")
+        pts = torch.stack([gx.reshape(-1), gy.reshape(-1)], dim=-1)
+        b = traj.durations.shape[0]
+        pts = pts[None].expand(b, -1, -1).contiguous()
+        res = svsdf_query(shape, traj, pts, cfg, with_inside=with_inside)
+        return res.sdf.reshape(b, len(xs), len(ys))

@@ -38,6 +38,7 @@ from svsdf_tpu_torch.planner import back_end, wavefront
 from svsdf_tpu_torch.utils import lbfgs
 from svsdf_tpu_torch.utils import trajectory as trj
 from svsdf_tpu_torch.utils.config import PlannerConfig
+from svsdf_tpu_torch.utils.profiling import host_bool, span
 from svsdf_tpu_torch.utils.transforms import backward_t, forward_t
 
 PI = math.pi
@@ -82,11 +83,13 @@ def plan_batch_staged(shape, x0_b, problems_b, cfg: PlannerConfig,
     the next. Entries are (svs_cfg, iters[, ls[, ls_cand[, frozen_ls[,
     weight_mult]]]]) as in ``_staged_solve``. ``device=None`` runs on
     CUDA (and raises without it)."""
-    x0_b, prob = _to_device(x0_b, problems_b, device)
-    x, res, traj = _staged_solve(shape, cfg, stages, n, max_linesearch,
-                                 x0_b, prob.head, prob.tail, prob.obstacles)
-    return back_end.BackEndResult(traj, x, res.f, res.n_iters,
-                                  res.converged)
+    with span("batch.staged"):
+        x0_b, prob = _to_device(x0_b, problems_b, device)
+        x, res, traj = _staged_solve(shape, cfg, stages, n, max_linesearch,
+                                     x0_b, prob.head, prob.tail,
+                                     prob.obstacles)
+        return back_end.BackEndResult(traj, x, res.f, res.n_iters,
+                                      res.converged)
 
 
 def default_stages(total_iters: int = 50, ls: int = 4,
@@ -137,25 +140,26 @@ def _staged_solve(shape, cfg, stages, n, max_linesearch,
     x = x0
     res = None
     for stage in stages:
-        svs_cfg, iters = stage[0], stage[1]
-        ls = stage[2] if len(stage) > 2 else max_linesearch
-        ls_cand = stage[3] if len(stage) > 3 else 0
-        frozen_ls = stage[4] if len(stage) > 4 else False
-        wmult = stage[5] if len(stage) > 5 else 1.0
-        wp = cfg.weight_p * wmult if wmult != 1.0 else None
-        params = lbfgs.LBFGSParams(
-            mem_size=cfg.mem_size, max_iterations=iters,
-            g_epsilon=1e-7, past=3, delta=cfg.relCostTol,
-            max_linesearch=ls, ls_candidates=ls_cand)
-        if frozen_ls:
-            full, frz = back_end.make_cost_pair_fn(shape, prob, cfg,
-                                                   svs_cfg, n, weight_p=wp)
-            res = lbfgs.minimize(full, x, params, frozen=frz)
-        else:
-            cost = back_end.make_cost_fn(shape, prob, cfg, svs_cfg, n,
-                                         weight_p=wp)
-            res = lbfgs.minimize(lbfgs.value_and_grad(cost), x, params)
-        x = res.x
+        with span("batch.stage"):
+            svs_cfg, iters = stage[0], stage[1]
+            ls = stage[2] if len(stage) > 2 else max_linesearch
+            ls_cand = stage[3] if len(stage) > 3 else 0
+            frozen_ls = stage[4] if len(stage) > 4 else False
+            wmult = stage[5] if len(stage) > 5 else 1.0
+            wp = cfg.weight_p * wmult if wmult != 1.0 else None
+            params = lbfgs.LBFGSParams(
+                mem_size=cfg.mem_size, max_iterations=iters,
+                g_epsilon=1e-7, past=3, delta=cfg.relCostTol,
+                max_linesearch=ls, ls_candidates=ls_cand)
+            if frozen_ls:
+                full, frz = back_end.make_cost_pair_fn(shape, prob, cfg,
+                                                       svs_cfg, n, weight_p=wp)
+                res = lbfgs.minimize(full, x, params, frozen=frz)
+            else:
+                cost = back_end.make_cost_fn(shape, prob, cfg, svs_cfg, n,
+                                             weight_p=wp)
+                res = lbfgs.minimize(lbfgs.value_and_grad(cost), x, params)
+            x = res.x
     traj = _final_traj(x, head, tail, n)
     return x, res, traj
 
@@ -308,7 +312,7 @@ def _certify_refine(shape, cfg, stages, n, max_linesearch, occ_pts, n_obs,
     for _ in range(refine_rounds):
         # whole-round skip once the best certificate clears the margin
         need = ~(best_cert >= cert_margin)
-        if not bool(need.any()):
+        if not host_bool(need.any(), "batch.certify_round"):
             break
         traj = _final_traj(x, head, tail, n)
         with torch.no_grad():
@@ -357,7 +361,7 @@ def _certify_refine(shape, cfg, stages, n, max_linesearch, occ_pts, n_obs,
                 n_sdf_best < cert_margin).to(dtype)
         n_cost = cost
         solve = need & viol
-        if bool(solve.any()):
+        if host_bool(solve.any(), "batch.certify_solve"):
             idx = torch.nonzero(solve)[:, 0]
             prob = back_end.BackEndProblem(head[idx], tail[idx],
                                            n_obstacles[idx])
@@ -410,42 +414,45 @@ def front_end(feas, occ_pts, starts_ij, goals_ij, cfg: PlannerConfig,
     plan, arc-length resample, nearest-obstacle harvest and the initial
     decision vector. Returns (front_ok (B,), head, tail (B, 3, 3),
     obstacles (B, n_obs, 2), x0 (B, 4n-3))."""
-    dev = resolve_device(device)
-    occ_pts = _occ_points(occ_pts, dev, dtype)
-    feas = torch.as_tensor(feas, device=dev).bool()
-    starts = torch.as_tensor(starts_ij, device=dev).long()
-    goals = torch.as_tensor(goals_ij, device=dev).long()
-    xy_min = torch.as_tensor(xy_min, dtype=torch.float32, device=dev)
-    free = torch.any(feas, dim=0)
-    if max_path_len is None:
-        max_path_len = 4 * int(free.shape[0] + free.shape[1])
-    nb = starts.shape[0]
-    with torch.no_grad():
-        if trans_feas is not None:
-            # yaw in the search graph: transition-checked (cell, bin) moves
-            dist3 = wavefront.distance_field_3d(
-                feas, trans_feas, goals, yaw_weight,
-                max_iters=max_path_len + 8, cell_cost=cell_cost, device=dev)
-            path, yaws, length, ok = wavefront.extract_path_3d(
-                dist3, trans_feas, starts, max_path_len, yaw_weight,
-                cell_cost=cell_cost, device=dev)
-        else:
-            dist = wavefront.distance_field(free, goals,
-                                            max_iters=max_path_len + 8,
-                                            device=dev)
-            path, length, ok = wavefront.extract_path(dist, starts,
-                                                      max_path_len, device=dev)
-            # Viterbi DP yaw: globally minimal total rotation
-            yaws = wavefront.assign_yaws_dp(feas, path, device=dev)
-        head, tail, states = _resample_path(path, yaws, length, n,
-                                            float(resolution), xy_min,
-                                            feas.shape[0], dtype)
-        obs = _harvest_topm(occ_pts, states, n_obs)
-        tau = backward_t(torch.full((n,), cfg.inittime, dtype=torch.float32,
-                                    device=dev)).to(dtype)
-        x0 = torch.cat([tau.expand(nb, n), states[:, 1:-1].reshape(nb, -1)],
-                       dim=1)
-    return ok, head, tail, obs, x0
+    with span("batch.front_end"):
+        dev = resolve_device(device)
+        occ_pts = _occ_points(occ_pts, dev, dtype)
+        feas = torch.as_tensor(feas, device=dev).bool()
+        starts = torch.as_tensor(starts_ij, device=dev).long()
+        goals = torch.as_tensor(goals_ij, device=dev).long()
+        xy_min = torch.as_tensor(xy_min, dtype=torch.float32, device=dev)
+        free = torch.any(feas, dim=0)
+        if max_path_len is None:
+            max_path_len = 4 * int(free.shape[0] + free.shape[1])
+        nb = starts.shape[0]
+        with torch.no_grad():
+            if trans_feas is not None:
+                # yaw in the search graph: transition-checked (cell, bin) moves
+                dist3 = wavefront.distance_field_3d(
+                    feas, trans_feas, goals, yaw_weight,
+                    max_iters=max_path_len + 8, cell_cost=cell_cost,
+                    device=dev)
+                path, yaws, length, ok = wavefront.extract_path_3d(
+                    dist3, trans_feas, starts, max_path_len, yaw_weight,
+                    cell_cost=cell_cost, device=dev)
+            else:
+                dist = wavefront.distance_field(free, goals,
+                                                max_iters=max_path_len + 8,
+                                                device=dev)
+                path, length, ok = wavefront.extract_path(
+                    dist, starts, max_path_len, device=dev)
+                # Viterbi DP yaw: globally minimal total rotation
+                yaws = wavefront.assign_yaws_dp(feas, path, device=dev)
+            head, tail, states = _resample_path(path, yaws, length, n,
+                                                float(resolution), xy_min,
+                                                feas.shape[0], dtype)
+            obs = _harvest_topm(occ_pts, states, n_obs)
+            tau = backward_t(torch.full((n,), cfg.inittime,
+                                        dtype=torch.float32,
+                                        device=dev)).to(dtype)
+            x0 = torch.cat([tau.expand(nb, n),
+                            states[:, 1:-1].reshape(nb, -1)], dim=1)
+        return ok, head, tail, obs, x0
 
 
 def plan_batch_e2e(shape, feas, occ_pts, starts_ij, goals_ij,
@@ -475,28 +482,33 @@ def plan_batch_e2e(shape, feas, occ_pts, starts_ij, goals_ij,
     field and cell centres are float32; the obstacles keep occ_pts's
     dtype, as in the JAX package. ``device=None`` runs on CUDA and raises
     without it. Returns E2EBatchResult."""
-    dev = resolve_device(device)
-    occ = _occ_points(occ_pts, dev, dtype)
-    ok, head, tail, obs, x0 = front_end(
-        feas, occ, starts_ij, goals_ij, cfg, n, n_obs, resolution, xy_min,
-        max_path_len, trans_feas, yaw_weight, cell_cost, dev, dtype)
-    x, res, traj = _staged_solve(shape, cfg, stages, n, max_linesearch, x0,
-                                 head, tail, obs)
-    cost = res.f
-    if refine_rounds > 0:
-        x, obs, cost = _certify_refine(
-            shape, cfg, stages, n, max_linesearch, occ, n_obs, x, head,
-            tail, obs, refine_rounds, refine_iters, refine_esc, cert_margin,
-            refine_fast, cost0=cost, refine_svs_cfg=refine_svs_cfg)
-        traj = _final_traj(x, head, tail, n)
-        # final certificate over a fresh harvest at the refined sweep
-        with torch.no_grad():
-            obs = _sweep_harvest(traj, occ, n, n_obs)
-    with torch.no_grad():
-        cert = svsdf_query(shape, traj, obs, _cert_cfg(stages),
-                           with_inside=False).sdf.amin(dim=1)
-    return E2EBatchResult(ok, x, cost, cert, head, tail, obs, traj.coeffs,
-                          traj.durations)
+    with span("batch.e2e"):
+        dev = resolve_device(device)
+        occ = _occ_points(occ_pts, dev, dtype)
+        ok, head, tail, obs, x0 = front_end(
+            feas, occ, starts_ij, goals_ij, cfg, n, n_obs, resolution,
+            xy_min, max_path_len, trans_feas, yaw_weight, cell_cost, dev,
+            dtype)
+        x, res, traj = _staged_solve(shape, cfg, stages, n, max_linesearch,
+                                     x0, head, tail, obs)
+        cost = res.f
+        with span("batch.certify"):
+            if refine_rounds > 0:
+                x, obs, cost = _certify_refine(
+                    shape, cfg, stages, n, max_linesearch, occ, n_obs, x,
+                    head, tail, obs, refine_rounds, refine_iters,
+                    refine_esc, cert_margin, refine_fast, cost0=cost,
+                    refine_svs_cfg=refine_svs_cfg)
+                traj = _final_traj(x, head, tail, n)
+                # final certificate over a fresh harvest at the refined
+                # sweep
+                with torch.no_grad():
+                    obs = _sweep_harvest(traj, occ, n, n_obs)
+            with torch.no_grad():
+                cert = svsdf_query(shape, traj, obs, _cert_cfg(stages),
+                                   with_inside=False).sdf.amin(dim=1)
+        return E2EBatchResult(ok, x, cost, cert, head, tail, obs,
+                              traj.coeffs, traj.durations)
 
 
 # ---------------------------------------------------------------------------

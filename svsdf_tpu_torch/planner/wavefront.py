@@ -32,6 +32,7 @@ import torch.nn.functional as F
 
 from svsdf_tpu_torch import resolve_device
 from svsdf_tpu_torch.ops.kernels import DIRS8, YAW_BFS_DELTAS
+from svsdf_tpu_torch.utils.profiling import host_bool
 
 INF = 1e9
 #: 8-neighborhood (dx, dy) and step costs of the 2-D field
@@ -79,7 +80,8 @@ def _relax_loop(relax, d, max_iters):
     sweep = 0
     while True:
         active = changed & (it < max_iters)
-        if sweep % _CHECK_EVERY == 0 and not bool(active.any()):
+        if sweep % _CHECK_EVERY == 0 and not host_bool(active.any(),
+                                                       "wavefront.relax"):
             break
         sweep += 1
         d2 = relax(d)
@@ -149,7 +151,7 @@ def extract_path(dist, start_ij, max_len: int = 512, device=None):
     done = torch.zeros(nb, dtype=torch.bool, device=dev)
     steps = []
     for k in range(max_len - 1):
-        if k % _CHECK_EVERY == 0 and bool(done.all()):
+        if k % _CHECK_EVERY == 0 and host_bool(done.all(), "wavefront.path"):
             break
         here = dist[lanes, ij[:, 0], ij[:, 1]]
         nbr = ij[:, None, :] + dirs                          # (B, 8, 2)
@@ -328,7 +330,8 @@ def extract_path_3d(dist3, trans_feas, start_ij, max_len: int = 512,
     done = torch.zeros(nb, dtype=torch.bool, device=dev)
     steps, bsteps = [], []
     for k in range(max_len - 1):
-        if k % _CHECK_EVERY == 0 and bool(done.all()):
+        if k % _CHECK_EVERY == 0 and host_bool(done.all(),
+                                               "wavefront.path3d"):
             break
         here = dist3[lanes, b, ij[:, 0], ij[:, 1]]
         nbr = ij[:, None, :] + dirs                               # (B, 8, 2)

@@ -33,6 +33,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from svsdf_tpu_torch.utils.profiling import host_bool, span
+
 
 @dataclasses.dataclass(frozen=True)
 class LBFGSParams:
@@ -112,7 +114,7 @@ def _weak_wolfe_search(fun, x, f0, g0, d, p: LBFGSParams, t0, live):
     ok = torch.zeros(nb, dtype=torch.bool, device=x.device)
     while True:
         run = live & (k < p.max_linesearch) & ~ok
-        if not bool(torch.any(run)):
+        if not host_bool(torch.any(run), "lbfgs.wolfe"):
             break
         xt_n = x + t[:, None] * d
         ft_n, gt_n = fun(xt_n)
@@ -332,18 +334,21 @@ def minimize_scheduled(fun: Callable, x0,
 
     while True:
         active = ~done & (it < total) & (it < p.max_iterations)
-        if not bool(torch.any(active)):
+        if not host_bool(torch.any(active), "lbfgs.active"):
             break
-        d = -apply_h(ga, s_hist, y_hist, rho, n_corr, head)
-        dg = _dot(d, ga)
-        d = _sel(dg < 0, d, -ga)
-        t0 = torch.where(n_corr == 0, 1.0 / torch.clamp_min(_norm(d), 1.0),
-                         torch.full_like(dg, p.init_step))
+        with span("lbfgs.direction"):
+            d = -apply_h(ga, s_hist, y_hist, rho, n_corr, head)
+            dg = _dot(d, ga)
+            d = _sel(dg < 0, d, -ga)
+            t0 = torch.where(n_corr == 0,
+                             1.0 / torch.clamp_min(_norm(d), 1.0),
+                             torch.full_like(dg, p.init_step))
         it_c = it
         if frozen is None:
-            t, x_new, f_new, g_new, ok, _, g_trial = search(
-                lambda xt: fun(xt, rows(it_c, xt)), x, f, ga, d, p, t0,
-                active)
+            with span("lbfgs.line_search"):
+                t, x_new, f_new, g_new, ok, _, g_trial = search(
+                    lambda xt: fun(xt, rows(it_c, xt)), x, f, ga, d, p, t0,
+                    active)
             fro_new = fro
         else:
             fro_c = fro
@@ -352,8 +357,9 @@ def minimize_scheduled(fun: Callable, x0,
                 return frozen(xt, rows(it_c, xt),
                               _tree_repeat(fro_c, xt.shape[0] // nb))
 
-            t, _, _, _, _, x_trial, _ = search(
-                fro_fun, x, f, ga, d, p, t0, active)
+            with span("lbfgs.line_search"):
+                t, _, _, _, _, x_trial, _ = search(
+                    fro_fun, x, f, ga, d, p, t0, active)
             f_t, g_t, fro_t = fun(x_trial, it_c)
             ok = f_t <= f + p.f_dec_coeff * t * _dot(ga, d)
             x_new = _sel(ok, x_trial, x)
@@ -419,7 +425,7 @@ def minimize_scheduled(fun: Callable, x0,
             nulls_n = torch.where(jump, torch.zeros_like(nulls_n), nulls_n)
             past_n = _sel(jump, torch.full_like(past_n, math.inf), past_n)
             done_n = finished & ~jump
-            if bool(torch.any(jump & active)):
+            if host_bool(torch.any(jump & active), "lbfgs.jump"):
                 if frozen is None:
                     f_j, g_j = fun(x_new, nxt)
                 else:

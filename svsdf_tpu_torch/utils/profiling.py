@@ -4,14 +4,18 @@ ad-hoc chrono accumulators (SURVEY.md §5: A* per-expansion timing
 `total_opt_time/total_sdf_time/total_AABB_time`
 `back_end_optimizer.hpp:31-33`) replaced with a device-aware toolkit:
 
+  * `span(name)` — a named range in a running profiler session, free
+    outside one: the program's layer boundaries.
+  * `host_bool(t, site)` — a host read of a device flag inside the span
+    `sync.<site>`, so that every host wait of a solve is counted.
   * `stage(name)` — wall-clock context manager that records into the
-    module Profile and (optionally) opens a
-    `torch.profiler.record_function` range so the stage shows up in
-    profiler traces.
+    module Profile and (optionally) opens a `span` so the stage shows up
+    in profiler traces.
   * `device_trace(logdir)` — a `torch.profiler.profile` of a region (CPU
     and, with a card, CUDA activity), written as a Chrome trace into
     `logdir` (TensorBoard or Perfetto open it).
-  * `timed(fn)` — decorator variant of `stage`.
+  * `is_device_activity(event)` — whether a profiler event is work the
+    device ran (not an annotation drawn on its timeline).
   * `Profile.report()` — per-stage count/total/mean table.
 
 Device timings are honest only when the stage waits for the device:
@@ -22,7 +26,6 @@ device of every tensor in it, since a launch returns at enqueue time.
 from __future__ import annotations
 
 import contextlib
-import functools
 import time
 from collections import defaultdict
 from typing import Any, Dict, Optional
@@ -74,6 +77,46 @@ def _block(x):
         torch.cuda.synchronize(dev)
 
 
+#: what ``span`` returns while no profiler session runs: one shared
+#: context that does nothing
+_NULL_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A profiler range named ``name`` around a block, while a
+    torch.profiler session runs in this thread (an autograd engine thread
+    takes its caller's session); otherwise a shared null context: no
+    clock, no accumulator, no device sync.
+
+    The range is a host event (the profiler's ``cpu_op``). It is not a
+    user annotation: the profiler draws those on the device's timeline
+    as well, where readers that take every device row for a kernel would
+    count it. A launch made inside the range lies inside it on the
+    profiler's clock, which is how the device time of a layer is found
+    (the kernel of each launch)."""
+    if not torch.autograd._profiler_enabled():
+        return _NULL_SPAN
+    return torch._C._profiler._RecordFunctionFast(name)
+
+
+def host_bool(t, site: str) -> bool:
+    """``bool(t)`` of a one-element tensor: on a device tensor a host
+    wait for the device. Inside a profiler session the read is the span
+    ``sync.<site>``, so that the host waits of a solve are counted and
+    timed."""
+    with span("sync." + site):
+        return bool(t)
+
+
+def is_device_activity(event) -> bool:
+    """Whether an event of a finished session's raw trace
+    (``prof.profiler.kineto_results.events()``) is work the device ran:
+    a kernel, copy or fill. A user annotation (``record_function``) is
+    drawn on the device's timeline too and is not."""
+    return (event.device_type() == torch.autograd.DeviceType.CUDA
+            and not event.is_user_annotation())
+
+
 @contextlib.contextmanager
 def stage(name: str, profile: Optional[Profile] = None,
           annotate: bool = True):
@@ -82,6 +125,8 @@ def stage(name: str, profile: Optional[Profile] = None,
     with profiling.stage("back_end") as s:
         out = plan(...)
         s.block(out)        # count until the device result is real
+
+    With ``annotate`` the stage is a ``span`` too.
     """
     prof = profile if profile is not None else PROFILE
 
@@ -89,32 +134,13 @@ def stage(name: str, profile: Optional[Profile] = None,
         def block(self, x):
             _block(x)
 
-    ctx = (torch.profiler.record_function(name) if annotate
-           else contextlib.nullcontext())
+    ctx = span(name) if annotate else _NULL_SPAN
     t0 = time.perf_counter()
     try:
         with ctx:
             yield _Handle()
     finally:
         prof.add(name, time.perf_counter() - t0)
-
-
-def timed(name: Optional[str] = None,
-          profile: Optional[Profile] = None):
-    """Decorator: time each call, blocking on the returned tensors."""
-    def deco(fn):
-        sname = name or fn.__name__
-
-        @functools.wraps(fn)
-        def wrapper(*a, **kw):
-            with stage(sname, profile=profile) as s:
-                out = fn(*a, **kw)
-                s.block(out)
-            return out
-
-        return wrapper
-
-    return deco
 
 
 @contextlib.contextmanager

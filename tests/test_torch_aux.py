@@ -53,17 +53,6 @@ def test_profile_stage_and_report():
     assert "work" in prof.report()
 
 
-def test_timed_decorator():
-    prof = profiling.Profile()
-
-    @profiling.timed("f", profile=prof)
-    def f(x):
-        return x * 2
-
-    assert float(f(torch.tensor(3.0))) == 6.0
-    assert prof.counts["f"] == 1
-
-
 def test_bench_fn_returns_stats():
     out = profiling.bench_fn(lambda x: (x @ x).sum(), torch.ones((32, 32)),
                              reps=3)
