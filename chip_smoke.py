@@ -9,7 +9,9 @@ Phases, one line each (any failure raises and the exit code is not 0):
      build/kernels/ with nvcc (sm_90a), and beside it (a second nvcc,
      started together) scan_ab.py's ``floor`` build of the same source
      into build/scan_variants/floor/, which phase 3 times and the package
-     never loads; then holds the grid body's branch-free square roots
+     never loads, and svsdf_tpu_torch/csrc/minco_cr.cu (the MINCO CR
+     kernels, a third nvcc); then holds the grid body's branch-free
+     square roots
      against the correctly rounded root at every positive float32 and
      bfloat16 input (grid_roots: no mismatch), and the deformable float32
      form's division by a pose's scale against the IEEE quotient at every
@@ -38,6 +40,13 @@ Phases, one line each (any failure raises and the exit code is not 0):
      and the plain version's time per call (CUDA events), printed in the
      kernel table's JSON line; the launch geometry of each timed shape
      and the bound's basis on lines of their own;
+  3b. the MINCO CR kernels (ops/cuda_minco.py): the forward solve and
+     the backward (transposed solve and band gradient) at the staged
+     path's shapes (16384 and 65536 plans x N = 8 x D = 3, float32),
+     each against block_cr's plain version, then timed by CUDA events
+     beside its byte and operation bounds (cuda_minco.work), the plain
+     version's time and the library's (torch.linalg.solve of the dense
+     system) (minco_cr_times, one line each);
   4. main path: the bench's plans section in this process
      (svsdf_tpu_torch.bench.plans_run, B=512 only): plan_batch_staged at
      n=8, M=64, sdHeart, PlannerConfig(mem_size=8), first at
@@ -135,9 +144,12 @@ Phases, one line each (any failure raises and the exit code is not 0):
      synthetic_sdTrapezoid replanner, then a live back-end solve from its
      trajectory under the live dashboard (chiprun_out/live.html), one
      opti_cost entry an iteration run; (b) the trajectory through the
-     PolyTraj JSON (coefficients bit for bit), a MincoTraj re-solved on
-     the card (positions within 1e-5 m over 200 times) and a plan
-     checkpoint (bit for bit); (c) sample_commands and odom_from_commands
+     PolyTraj JSON (coefficients bit for bit), a MincoTraj of the live
+     solve's parameters re-solved on the card (positions within 1e-5 m
+     of the live solve's trajectory over 200 times; the same round trip
+     from parameters read back off the replanned trajectory is reported
+     for the kernel, the plain version and a float64 solve, unlimited)
+     and a plan checkpoint (bit for bit); (c) sample_commands and odom_from_commands
      on the card against a host float64 run of the same trajectory
      (within 1e-5 of max(1, |value|); yaw and yaw_rate * dt within 1e-4
      rad), fly against the host's float64 flight (positions within 1e-4
@@ -197,9 +209,13 @@ each solve of 10, 11, 12, 13, each path of 14 and 15, each rank's run of
 form, and after
 each path the kernel is held bit for bit against its plain version, on
 seeded inputs (and seeded pose times for a deformable robot), at every
-shape, form and (B, M, K) that path launched it at. Then the kernel
-table as one JSON line (one entry a form, and one for each form of the
-grid body), the nvidia-smi line, and as the last line {"ok": true,
+shape, form and (B, M, K) that path launched it at. The same lines
+(path_scans) give the MINCO CR kernels' launches on the path, from their
+counter by direction and by (direction, dtype, BxNxD), and hold each
+kernel against block_cr's plain version at every such shape. Then the
+kernel table as one JSON line (one entry a form, and one for each form
+of the grid body), the MINCO CR kernels' line (their times and launches
+by path), the nvidia-smi line, and as the last line {"ok": true,
 "device": {...}}.
 """
 
@@ -219,6 +235,7 @@ from unittest import mock
 
 from svsdf_tpu_torch.bench import (KERNEL_NAME, device_events, profile_solve,
                                    smi_line)
+from svsdf_tpu_torch.ops import block_cr, cuda_minco
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -528,10 +545,15 @@ class ShapeLog:
 
     #: the largest error seen by any check, by form
     worst: dict = {}
+    #: the MINCO CR kernels' launches of every checked path, by
+    #: '<direction> <dtype> BxNxD'
+    minco_by_path: dict = {}
 
     def __init__(self, cs):
         self.cs, self.seen, self.counts = cs, {}, {}
         self._orig = cs._launch
+        self.minco = {}
+        self._minco_orig = cuda_minco._launch
 
     def __enter__(self):
         def logged(shape, points, xy, cos, sin, scan_dtype=None, ts=None):
@@ -541,11 +563,32 @@ class ShapeLog:
             self.seen.setdefault(key, (shape, scan_dtype))
             self.counts[key] = self.counts.get(key, 0) + 1
             return self._orig(shape, points, xy, cos, sin, scan_dtype, ts)
+
+        def minco_logged(bands, rhs, xf, refine, transpose):
+            key = ("forward" if xf is None else "backward",
+                   str(bands.dtype).removeprefix("torch."), bands.shape[0],
+                   bands.shape[1] // 6, rhs.shape[-1])
+            self.minco[key] = self.minco.get(key, 0) + 1
+            return self._minco_orig(bands, rhs, xf, refine, transpose)
         self.cs._launch = logged
+        cuda_minco._launch = minco_logged
+        self._minco_start = dict(cuda_minco.launches)
         return self
 
-    def __exit__(self, *exc):
+    def _stop(self):
         self.cs._launch = self._orig
+        if cuda_minco._launch is not self._minco_orig:
+            cuda_minco._launch = self._minco_orig
+            self.minco_counter = {k: v - self._minco_start[k]
+                                  for k, v in cuda_minco.launches.items()}
+
+    def __exit__(self, *exc):
+        self._stop()
+
+    def minco_by_shape(self):
+        """{'<direction> <dtype> BxNxD': MINCO CR launches}."""
+        return {f"{k[0]} {k[1]} {k[2]}x{k[3]}x{k[4]}": v
+                for k, v in sorted(self.minco.items())}
 
     def summary(self, form=None):
         """'<shape> <form> BxMxK' of every launch, of ``form`` only if
@@ -575,9 +618,23 @@ class ShapeLog:
             worst = max(worst, err)
             entry = entry_of(self.cs, shape, scan_dtype)
             ShapeLog.worst[entry] = max(ShapeLog.worst.get(entry, 0.0), err)
+        # the MINCO CR kernels at every (direction, dtype, B, N, D) the
+        # path launched them at, against the plain version; the counter
+        # must agree with the launches seen
+        minco_err = 0.0
+        for i, key in enumerate(sorted(self.minco)):
+            minco_err = max(minco_err, minco_check(torch, *key, seed + i))
+        seen = {dr: sum(v for k, v in self.minco.items() if k[0] == dr)
+                for dr in ("forward", "backward")}
+        if seen != self.minco_counter:
+            raise AssertionError(f"{path}: MINCO CR launches {seen} seen, "
+                                 f"{self.minco_counter} counted")
+        ShapeLog.minco_by_path[path] = self.minco_by_shape()
         say("path_scans", path=path, cases=len(self.seen),
             shapes=self.summary(), launches=self.by_shape(),
-            max_abs_err=worst, bitwise=True)
+            max_abs_err=worst, bitwise=True,
+            minco_launches=self.minco_counter,
+            minco_shapes=self.minco_by_shape(), minco_max_rel_err=minco_err)
         return worst
 
 
@@ -594,7 +651,7 @@ class SectionLog(ShapeLog):
         read = bench._check_launched
 
         def closing(*args):
-            self.cs._launch = self._orig
+            self._stop()
             return read(*args)
         self._patch = mock.patch.object(bench, "_check_launched", closing)
         self._patch.start()
@@ -667,6 +724,117 @@ def timed(torch, fn):
 def rel_diff(a, b):
     """max |a - b| / max(1, |b|) over the elements."""
     return float(((a - b).abs() / b.abs().clamp_min(1.0)).max())
+
+
+#: (B, N, D) at which the MINCO CR kernels are timed, in float32: the
+#: staged path's true costs (B = 16384) and frozen line searches (4B)
+#: at N = 8 pieces, D = 3
+MINCO_TIMED = ((16384, 8, 3), (65536, 8, 3))
+#: H100 SXM float32 FLOP/s outside the tensor cores (datasheet; an FMA
+#: counts two, as the MINCO kernels' operation counts do: they build
+#: with FMA)
+FP32_FLOPS = 67e12
+#: the MINCO kernels against the plain version: relative to the plain
+#: output's largest magnitude (both in the refined CR's accuracy class,
+#: tests/test_torch_cuda_minco_cr.py)
+MINCO_TOL = {"float32": 2e-5, "float64": 1e-12}
+
+
+def minco_inputs(torch, b, n, d, dtype, seed):
+    """MINCO's normalized-time system of B random plans (bands (B, 6N,
+    13), rhs (B, 6N, D)) on the card, built in float64 and cast."""
+    import numpy as np
+    from svsdf_tpu_torch.ops import minco
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device="cuda")
+    head = np.zeros((b, 3, d))
+    head[:, 0] = rng.uniform(-1, 1, (b, d))
+    head[:, 1] = rng.uniform(-0.5, 0.5, (b, d))
+    tail = np.zeros((b, 3, d))
+    tail[:, 0] = rng.uniform(5, 9, (b, d))
+    bands, rhs = minco.build_bands_norm(
+        t(rng.uniform(0.6, 2.0, (b, n))), t(head), t(tail),
+        t(rng.uniform(0, 8, (b, n - 1, d))))
+    return bands.to(dtype), rhs.to(dtype)
+
+
+def minco_check(torch, direction, dtype, b, n, d, seed):
+    """The MINCO CR kernel of one direction against block_cr's plain
+    version on seeded inputs: the largest error over the plain outputs'
+    largest magnitude; raises past MINCO_TOL."""
+    dt = getattr(torch, dtype)
+    bands, rhs = minco_inputs(torch, b, n, d, dt, seed)
+    x = block_cr._cr_core(bands, rhs, block_cr.REFINE, False)
+    if direction == "forward":
+        pairs = [(cuda_minco.forward(bands, rhs, block_cr.REFINE), x)]
+    else:
+        xb = torch.randn(rhs.shape, dtype=dt, device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(seed))
+        pairs = zip(cuda_minco.backward(bands, x.contiguous(), xb,
+                                        block_cr.REFINE),
+                    block_cr.plain_backward(bands, x, xb))
+    err = max(float((k - p).abs().max() / p.abs().max()) for k, p in pairs)
+    if not err <= MINCO_TOL[dtype]:
+        raise AssertionError(f"MINCO CR {direction} {dtype} {b}x{n}x{d}: "
+                             f"{err} from the plain version")
+    return err
+
+
+def dense_of(torch, bands):
+    """(B, 6N, 6N) matrix of band storage: row i, column i + d - 6."""
+    b, n6, nd = bands.shape
+    m = torch.zeros((b, n6, n6 + nd - 1), dtype=bands.dtype,
+                    device=bands.device)
+    idx = torch.arange(n6, device=bands.device)
+    for dd in range(nd):
+        m[:, idx, idx + dd] = bands[:, :, dd]
+    return m[:, :, nd // 2:n6 + nd // 2]
+
+
+def minco_phase(torch):
+    """Both MINCO CR kernels at MINCO_TIMED in float32: each checked
+    against the plain version, then timed (CUDA events) beside their
+    byte and operation bounds, the plain version's time and the library's
+    (torch.linalg.solve of the dense (B, 6N, 6N) system; backward: of its
+    transpose, then the band gradient from the outer product)."""
+    rows = []
+    for b, n, d in MINCO_TIMED:
+        bands, rhs = minco_inputs(torch, b, n, d, torch.float32, b)
+        x = block_cr._cr_core(bands, rhs, block_cr.REFINE, False)
+        x = x.contiguous()
+        xb = torch.randn_like(rhs)
+        m = dense_of(torch, bands)
+        mt = m.transpose(-1, -2).contiguous()
+        runs = {
+            "forward": (lambda: cuda_minco.forward(bands, rhs,
+                                                   block_cr.REFINE),
+                        lambda: block_cr._cr_core(bands, rhs,
+                                                  block_cr.REFINE, False),
+                        lambda: torch.linalg.solve(m, rhs)),
+            "backward": (lambda: cuda_minco.backward(bands, x, xb,
+                                                     block_cr.REFINE),
+                         lambda: block_cr.plain_backward(bands, x, xb),
+                         lambda: block_cr.band_gradient(
+                             torch.linalg.solve(mt, xb), x))}
+        for direction, (kernel, plain, library) in runs.items():
+            err = minco_check(torch, direction, "float32", b, n, d, b + 1)
+            ops, nbytes = cuda_minco.work(n, d, block_cr.REFINE,
+                                          direction == "backward")
+            by_ops = b * ops / FP32_FLOPS * 1e3
+            by_bytes = b * nbytes / HBM_BYTES_PER_S * 1e3
+            ms = time_ms(torch, kernel, reps=50)
+            rows.append(dict(
+                direction=direction, B=b, N=n, D=d, dtype="float32", ms=ms,
+                bound_ms=max(by_ops, by_bytes),
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                ops_ms=by_ops, bytes_ms=by_bytes,
+                plain_ms=time_ms(torch, plain, reps=5),
+                library_ms=time_ms(torch, library, reps=5),
+                geometry=cuda_minco.geometry(
+                    torch.cuda.current_device(), n, d, torch.float32,
+                    direction == "backward"),
+                max_rel_err=err))
+    return rows
 
 
 #: phase 16's sharded solve: phase 4's problem at the fast stage of
@@ -1100,6 +1268,7 @@ def deployment_loop(torch, rp, sc, fleet, scene, memo_cases, dev,
     from svsdf_tpu_torch.io import (MincoTraj, PolyTraj, decode_minco_traj,
                                     decode_poly_traj, encode_minco_traj,
                                     encode_poly_traj)
+    from svsdf_tpu_torch.ops import minco
     from svsdf_tpu_torch.planner import back_end, traj_server
     from svsdf_tpu_torch.planner.pipeline import Planner
     from svsdf_tpu_torch.sim import closed_loop, kinematic
@@ -1186,14 +1355,40 @@ def deployment_loop(torch, rp, sc, fleet, scene, memo_cases, dev,
             poly_exact = (torch.equal(back.coeffs.cpu(), r.traj.coeffs)
                           and torch.equal(back.durations.cpu(),
                                           r.traj.durations))
+
+            def minco_gap(sent, got):
+                ts = torch.linspace(0.0, float(sent.total_duration[0]), 200,
+                                    device=dev)[None]
+                return float((trj.pos(got, ts) - trj.pos(sent, ts))
+                             [..., :2].abs().max())
+
+            # the live solve's MINCO parameters (its times, waypoints and
+            # end states), as a deployment's MincoTraj carries them: the
+            # receiver's re-solve is the sender's solve of the same inputs
+            n_live = res.traj.durations.shape[1]
             mmsg = MincoTraj.from_dict(json.loads(json.dumps(
-                encode_minco_traj(traj.durations[0], head, tail,
-                                  wps).to_dict())))
-            mback = decode_minco_traj(mmsg, device=dev)
-            ts200 = torch.linspace(0.0, float(traj.total_duration[0]), 200,
-                                   device=dev)[None]
-            minco_err = float((trj.pos(mback, ts200) - trj.pos(traj, ts200)
-                               )[..., :2].abs().max())
+                encode_minco_traj(res.traj.durations[0], head, tail,
+                                  res.opt_x[0, n_live:].reshape(n_live - 1, 3)
+                                  ).to_dict())))
+            minco_err = minco_gap(res.traj, decode_minco_traj(mmsg,
+                                                              device=dev))
+            # parameters read back off the replanned trajectory (its
+            # knots, its end states) instead: any float32 receiver lands
+            # a few float32 steps at the trajectory's magnitude away, so
+            # these readings (the kernel's, the plain version's, a float64
+            # solve's rounded to float32) are reported, not limited
+            rmsg = encode_minco_traj(traj.durations[0], head, tail, wps)
+            rederived = {"kernel": minco_gap(traj, decode_minco_traj(
+                rmsg, device=dev))}
+            with mock.patch.object(cuda_minco, "forward",
+                                   lambda b, r, k: block_cr._cr_core(
+                                       b, r, k, False)):
+                rederived["plain"] = minco_gap(traj, decode_minco_traj(
+                    rmsg, device=dev))
+            s64 = minco.solve(traj.durations.double(), head[None].double(),
+                              tail[None].double(), wps[None].double())
+            rederived["float64"] = minco_gap(traj, trj.Trajectory(
+                s64.coeffs.float(), traj.durations))
             path = checkpoint.save_plan(os.path.join(tmp.name, "plan.npz"),
                                         res.opt_x, res.traj,
                                         scenario=sc.name,
@@ -1210,6 +1405,7 @@ def deployment_loop(torch, rp, sc, fleet, scene, memo_cases, dev,
             lines["deploy_wire"] = dict(
                 polytraj_json_bytes=len(wire.to_json()),
                 polytraj_bitwise=poly_exact, minco_max_err_m=minco_err,
+                minco_rederived_err_m=rederived,
                 minco_json_bytes=len(json.dumps(mmsg.to_dict())),
                 checkpoint_bitwise=ck_exact,
                 checkpoint_bytes=os.path.getsize(path))
@@ -1440,16 +1636,21 @@ def main() -> int:
     import scan_ab
     floor_build = scan_ab.variant_module("floor")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         floor_job = pool.submit(floor_build.build)
+        minco_job = pool.submit(cuda_minco.build)
         lib, log = cs.build()
         build_s = time.perf_counter() - t0
         floor_job.result()
+        minco_lib, minco_log = minco_job.result()
     say("build", seconds=round(build_s, 3),
         with_floor_build_s=round(time.perf_counter() - t0, 3),
         library=os.path.relpath(lib, ROOT),
         ptxas=[ln.strip() for ln in log.splitlines()
-               if "registers" in ln or "spill" in ln])
+               if "registers" in ln or "spill" in ln],
+        minco_library=os.path.relpath(minco_lib, ROOT),
+        minco_ptxas=[ln.strip() for ln in minco_log.splitlines()
+                     if "registers" in ln or "spill" in ln])
     # the grid body's branch-free roots at every positive input
     roots = cs.root_mismatches("cuda")
     say("grid_roots", float32_mismatches=roots[0],
@@ -1649,6 +1850,11 @@ def main() -> int:
         grid_body_bf16_ops_per_eval=OPS_GRID_BF16,
         grid_bytes={r.name: r.grid.field.nbytes for r in mesh.values()},
         polygon_bf16_ops_per_eval=OPS_POSE)
+
+    # -- 3 (b). the MINCO CR kernels -----------------------------------
+    minco_times = minco_phase(torch)
+    for row in minco_times:
+        say("minco_cr_times", **row)
 
     # -- 4. main path --------------------------------------------------
     # the bench's plans section (svsdf_tpu_torch.bench.plans_run) in this
@@ -2421,6 +2627,12 @@ def main() -> int:
             timed_shapes=form_times["grid_bfloat16"],
             grid_scan=form_times["grid_bfloat16"][-1]),
     ]}), flush=True)
+    print(json.dumps({"minco_cr": {
+        "source": "svsdf_tpu_torch/csrc/minco_cr.cu",
+        "replaces": None, "counterpart_of": "svsdf_tpu/ops/block_cr.py",
+        "timed": minco_times, "launches_by_path": ShapeLog.minco_by_path,
+        "library": "torch.linalg.solve of the dense system (each timed "
+                   "row's library_ms)"}}), flush=True)
     memo_root.cleanup()
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

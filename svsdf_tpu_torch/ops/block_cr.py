@@ -11,13 +11,18 @@ in float32 (the JAX module docstring has the measurements).
 Every function takes a leading plan axis: bands (B, 6N, 13),
 right-hand sides (B, 6N, D). ``banded_solve_cr`` is an
 ``autograd.Function`` whose backward is the CR solve of the transposed
-system, as the JAX package's custom VJP.
+system, as the JAX package's custom VJP. On CUDA tensors each direction
+is one launch of the hand-written kernel of ``ops/cuda_minco.py``
+(``csrc/minco_cr.cu``), which computes what ``_cr_core`` and the band
+gradient compute; the plain functions here are the CPU route and what
+the card tests hold the kernel against.
 """
 
 from __future__ import annotations
 
 import torch
 
+from svsdf_tpu_torch.ops import cuda_minco
 from svsdf_tpu_torch.ops.banded import LBW, NDIAG
 from svsdf_tpu_torch.utils.profiling import span
 
@@ -190,11 +195,16 @@ def _cr_core(bands, rhs, refine_rounds, transpose):
 class _BandedSolveCR(torch.autograd.Function):
     """Solve M x = rhs by equilibrated block CR; the backward pass is
     the transposed CR solve (rhs_bar) and -rhs_bar x^T restricted to
-    the band (bands_bar)."""
+    the band (bands_bar). CUDA tensors launch the kernel, one launch a
+    direction; CPU tensors take the plain functions."""
 
     @staticmethod
     def forward(ctx, bands, rhs):
-        x = _cr_core(bands, rhs, REFINE, False)
+        if bands.is_cuda:
+            bands = bands.contiguous()
+            x = cuda_minco.forward(bands, rhs.contiguous(), REFINE)
+        else:
+            x = _cr_core(bands, rhs, REFINE, False)
         ctx.save_for_backward(bands, x)
         return x
 
@@ -203,18 +213,31 @@ class _BandedSolveCR(torch.autograd.Function):
         # on a CUDA tensor the autograd engine's own thread runs this
         with span("minco.backward"):
             bands, x = ctx.saved_tensors
-            n = x.shape[1]
-            rhs_bar = _cr_core(bands, x_bar.contiguous(), REFINE, True)
-            i = torch.arange(n, device=x.device)[:, None]
-            d = torch.arange(NDIAG, device=x.device)[None, :]
-            j = i + d - LBW
-            valid = (j >= 0) & (j < n)
-            outer = torch.matmul(rhs_bar, x.transpose(-1, -2))  # (B, n, n)
-            jc = torch.clamp(j, 0, n - 1).expand(x.shape[0], n, NDIAG)
-            gathered = torch.gather(outer, 2, jc)
-            bands_bar = torch.where(valid, -gathered,
-                                    torch.zeros_like(gathered))
-            return bands_bar, rhs_bar
+            if bands.is_cuda:
+                return cuda_minco.backward(bands, x, x_bar.contiguous(),
+                                           REFINE)
+            return plain_backward(bands, x, x_bar.contiguous())
+
+
+def plain_backward(bands, x, x_bar):
+    """(bands_bar, rhs_bar) of x = M^-1 rhs as plain tensor code: the
+    transposed CR solve and -rhs_bar x^T restricted to the band."""
+    rhs_bar = _cr_core(bands, x_bar, REFINE, True)
+    return band_gradient(rhs_bar, x), rhs_bar
+
+
+def band_gradient(rhs_bar, x):
+    """bands_bar (B, n, 13) = -rhs_bar x^T on the band, 0 outside the
+    matrix, through the full (B, n, n) outer product."""
+    n = x.shape[1]
+    i = torch.arange(n, device=x.device)[:, None]
+    d = torch.arange(NDIAG, device=x.device)[None, :]
+    j = i + d - LBW
+    valid = (j >= 0) & (j < n)
+    outer = torch.matmul(rhs_bar, x.transpose(-1, -2))  # (B, n, n)
+    jc = torch.clamp(j, 0, n - 1).expand(x.shape[0], n, NDIAG)
+    gathered = torch.gather(outer, 2, jc)
+    return torch.where(valid, -gathered, torch.zeros_like(gathered))
 
 
 def banded_solve_cr(bands, rhs):
