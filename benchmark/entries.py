@@ -22,14 +22,25 @@ from benchmark import problems, reference as ref, reference_map as rmap
 
 
 def _program_shape(cfg: dict, obj_path: str | None):
-    """The program's robot for a configuration."""
+    """The program's robot for a configuration: a mesh robot, or the
+    analytic body ``robot.body``, deformable under ``robot.scale``."""
     robot = cfg["robot"]
-    if robot["body"] == "sdHeart":
-        from svsdf_tpu_torch.models import shapes
-        return shapes.make_shape("sdHeart")
-    from svsdf_tpu_torch.models import mesh_sdf
-    return mesh_sdf.shape_from_mesh(obj_path, resolution=robot["selfmapresu"],
-                                    margin=robot["grid_margin"])
+    if robot["body"] == "mesh":
+        from svsdf_tpu_torch.models import mesh_sdf
+        return mesh_sdf.shape_from_mesh(
+            obj_path, resolution=robot["selfmapresu"],
+            margin=robot["grid_margin"])
+    from svsdf_tpu_torch.models import shapes
+    if robot["body"] not in shapes.shape_names():
+        raise ValueError(f"the program has no analytic body "
+                         f"{robot['body']!r}")
+    scale = robot.get("scale")
+    if scale is None:
+        return shapes.make_shape(robot["body"])
+    # the reference's body, built first, holds the schedule to "breathing"
+    return shapes.make_scaled_shape(
+        robot["body"], shapes.breathing_scale(scale["amp"], scale["rate"]),
+        kernel_scale=scale["kernel_scale"])
 
 
 def robot_obj(cfg: dict, build_dir: str) -> str | None:
@@ -86,11 +97,11 @@ class Staged:
         self.cfg, self.t, self.dev = cfg, traffic, dev
         self.n = cfg["pieces"]
         self.batch = traffic["batch"]
+        self.body = ref.make_body(cfg, obj_path)
         self.shape = _program_shape(cfg, obj_path)
         self.pcfg = PlannerConfig(**cfg["planner"])
         self.stages = self.stages_of(cfg)
         self._pb, self._be = pb, back_end
-        self.body = ref.make_body(cfg, obj_path)
 
     @staticmethod
     def stages_of(cfg: dict) -> tuple:
@@ -179,12 +190,12 @@ class Grid:
         from svsdf_tpu_torch.ops import minco
         from svsdf_tpu_torch.ops.svsdf import svsdf_grid
         self.cfg, self.t, self.dev = cfg, traffic, dev
+        self.body = ref.make_body(cfg, obj_path)
         self.shape = _program_shape(cfg, obj_path)
         self.knots = problems.grid_knots(traffic)
         self.traj = minco.solve(*_to(dev, *self.knots))
         self.svs = _svsdf_config(traffic["svsdf"])
         self._grid = svsdf_grid
-        self.body = ref.make_body(cfg, obj_path)
 
     def draw(self, rng):
         return problems.grid_axes(self.t, rng)
@@ -254,6 +265,7 @@ class E2E:
         self.cfg, self.t, self.dev = cfg, traffic, dev
         self.n, self.m = cfg["pieces"], traffic["obstacles"]
         self.batch = traffic["batch"]
+        self.body = ref.make_body(cfg, obj_path)
         self.shape = _program_shape(cfg, obj_path)
         self.pcfg = PlannerConfig(**cfg["planner"])
         self.stages = Staged.stages_of(cfg)
@@ -270,7 +282,6 @@ class E2E:
         self.xy_min = grid.xyz_min[:2].astype(np.float32)
         self._pb = pb
         # the benchmark's own: the reference's map, and the cells it draws
-        self.body = ref.make_body(cfg, obj_path)
         occ, self.ref_lo = rmap.voxelize(points, traffic["voxel"],
                                          traffic["sta_threshold"])
         self.ref_occ2d = occ[:, :, 0]

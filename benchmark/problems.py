@@ -14,7 +14,7 @@ import os
 import numpy as np
 import torch
 
-from benchmark.reference import sd_heart
+from benchmark import reference as ref
 
 
 def draw_problems(t: dict, batch: int, rng: np.random.Generator):
@@ -121,8 +121,9 @@ def write_heart_prism(path: str, step: float, half_height: float,
     about it)."""
     ax = np.arange(-extent, extent + step, step)
     gx, gy = np.meshgrid(ax, ax, indexing="ij")
-    segs = _contour(ax, sd_heart(torch.as_tensor(gx),
-                                  torch.as_tensor(gy)).numpy())
+    heart = ref.body_file("sdHeart").sdf
+    segs = _contour(ax, heart(torch.as_tensor(gx),
+                              torch.as_tensor(gy)).numpy())
     c = segs.reshape(-1, 2).mean(axis=0)
     a, b = segs[:, 0] - c, segs[:, 1] - c
     ccw = a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0] > 0.0

@@ -15,6 +15,15 @@ taking TF32 operands (10-bit mantissas, float32 sums): the precision
 below the configuration's float32-with-TF32-off, the control that the
 limits must fail.
 
+Robots. A configuration's ``robot.body`` names an analytic body, a file
+``bodies/<name>.py`` (its plain formula ``sdf(px, py)`` and its
+operation counts, ``roofline.py``), or ``"mesh"``, a closed .obj read as
+``MeshBody``. An optional ``robot.scale`` makes the robot deformable: at
+trajectory time t its SDF is s(t) f(q / s(t)) (``Scaled``). Every body
+is called ``body(px, py, t)``, with the times of the poses; rigid bodies
+ignore t, and without t a deformable body takes its kernel scale (the
+front end's stencils).
+
 The oracle follows the configuration's definition (``SVSDFConfig``
 fields as the configuration file states them): a coarse scan of the
 robot SDF at K evenly spaced trajectory times, ``refine_rounds`` wide
@@ -26,7 +35,10 @@ interior distance (GSIP) of the ``gsip_topk`` most interior points.
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import math
+import os
+import re
 
 import numpy as np
 import torch
@@ -194,7 +206,7 @@ def smoothed_l1(x, mu):
 # robot bodies
 # ---------------------------------------------------------------------------
 
-def _const(v, ref):
+def const(v, ref):
     """A constant as it meets ``ref``: rounded to bfloat16 when ``ref`` is
     bfloat16 (a scan in bfloat16 rounds every number it holds)."""
     if ref.dtype == torch.bfloat16:
@@ -202,23 +214,8 @@ def _const(v, ref):
     return v
 
 
-def _sqrt0(x):
+def sqrt0(x):
     return torch.sqrt(torch.clamp_min(x, 0.0))
-
-
-def sd_heart(px, py, scale: float = 4.0):
-    """Inigo Quilez's heart SDF, scaled by 4 (the upstream sdHeart robot)."""
-    c = lambda v: _const(v, px)
-    px = px.abs() / c(scale)
-    py = py / c(scale)
-    top = _sqrt0((px - 0.25) * (px - 0.25) + (py - 0.75) * (py - 0.75)) \
-        - c(math.sqrt(2.0) / 4.0)
-    v1 = px * px + (py - 1.0) * (py - 1.0)
-    m = torch.clamp_min(px + py, 0.0)
-    v2 = (px - 0.5 * m) * (px - 0.5 * m) + (py - 0.5 * m) * (py - 0.5 * m)
-    sign = torch.where(px - py < 0.0, -1.0, 1.0).to(px.dtype)
-    bottom = _sqrt0(torch.minimum(v1, v2)) * sign
-    return c(scale) * torch.where(px + py > 1.0, top, bottom)
 
 
 def read_obj(path: str):
@@ -303,16 +300,16 @@ class MeshBody:
                                                 device=ref.device)
         return self._tables[key]
 
-    def __call__(self, px, py):
+    def __call__(self, px, py, t=None):
         """Coordinates, weights and the outside term in the coordinates'
         type; the products with the grid values and their sum in the
-        grid's."""
+        grid's. A mesh robot is rigid: t is not read."""
         f = self._table(px)
         g, gc, idx, frac = [], [], [], []
         for p, lo, n in ((px, self.lo[0], self.n[0]),
                          (py, self.lo[1], self.n[1])):
-            gp = (p - _const(lo, p)) / _const(self.step, p)
-            c = torch.clamp(gp, 0.0, _const(n - 1.001, p))
+            gp = (p - const(lo, p)) / const(self.step, p)
+            c = torch.clamp(gp, 0.0, const(n - 1.001, p))
             i = torch.floor(c).long()
             g.append(gp)
             gc.append(c)
@@ -327,17 +324,70 @@ class MeshBody:
         for over in (g[0] - gc[0], g[1] - gc[1], -g[0], -g[1]):
             m = torch.clamp_min(over, 0.0)
             d2 = d2 + m * m
-        return v + _const(self.step, d2) * _sqrt0(d2)
+        return v + const(self.step, d2) * sqrt0(d2)
+
+
+#: the analytic bodies' files
+BODIES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "bodies")
+_BODY_FILES: dict = {}
+
+
+def body_file(name: str):
+    """The module ``bodies/<name>.py`` of the analytic body ``name``: its
+    ``sdf(px, py)``, ``OPS`` and ``OPS_F32_IN_BF16`` (``roofline.py``)."""
+    if name not in _BODY_FILES:
+        path = os.path.join(BODIES, f"{name}.py")
+        if not re.fullmatch(r"[A-Za-z0-9_][A-Za-z0-9_.-]*", name) \
+                or not os.path.isfile(path):
+            raise ValueError(f"robot body {name!r}: no file {path}")
+        spec = importlib.util.spec_from_file_location(
+            f"benchmark.bodies.{name}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _BODY_FILES[name] = mod
+    return _BODY_FILES[name]
+
+
+@dataclasses.dataclass(frozen=True)
+class Breathing:
+    """The scale schedule s(t) = 1 + amp sin(rate t) (``robot.scale``'s
+    ``"breathing"``; upstream's getScale hook, sw_manager.hpp:495-518).
+    Its constants meet t in t's type: a bfloat16 scan rounds them, and
+    every step, to bfloat16, as it computes the scales of its poses."""
+    amp: float
+    rate: float
+
+    def __call__(self, t):
+        c = lambda v: const(v, t)
+        return c(1.0) + c(self.amp) * torch.sin(c(self.rate) * t)
+
+
+class Scaled:
+    """A deformable robot: s(t) f(px / s(t), py / s(t)) at the times t of
+    the poses, and at ``kernel_scale`` without them."""
+
+    def __init__(self, sdf, scale, kernel_scale: float):
+        self.sdf, self.scale, self.kernel_scale = sdf, scale, kernel_scale
+
+    def __call__(self, px, py, t=None):
+        s = const(self.kernel_scale, px) if t is None else self.scale(t)
+        return s * self.sdf(px / s, py / s)
 
 
 def make_body(cfg: dict, obj_path: str | None = None):
-    """The body SDF f(px, py) a configuration's ``robot`` entry names."""
+    """The body SDF ``body(px, py, t)`` a configuration's ``robot`` entry
+    names; an unknown body or schedule raises, naming what is missing."""
     robot = cfg["robot"]
-    if robot["body"] == "sdHeart":
-        return sd_heart
     if robot["body"] == "mesh":
         return MeshBody(obj_path, robot["selfmapresu"], robot["grid_margin"])
-    raise ValueError(f"unknown robot body {robot['body']!r}")
+    sdf = body_file(robot["body"]).sdf
+    scale = robot.get("scale")
+    if scale is None:
+        return lambda px, py, t=None: sdf(px, py)
+    if scale["schedule"] != "breathing":
+        raise ValueError(f"unknown scale schedule {scale['schedule']!r}")
+    return Scaled(sdf, Breathing(scale["amp"], scale["rate"]),
+                  scale["kernel_scale"])
 
 
 # ---------------------------------------------------------------------------
@@ -398,11 +448,12 @@ def _coarse(body, traj: Traj, points, k: int, bf16: bool):
     c, s = torch.cos(yaw), torch.sin(yaw)
     pts = points
     if bf16:
-        xy, c, s, pts = (v.to(torch.bfloat16) for v in (xy, c, s, points))
+        xy, c, s, pts, ts = (v.to(torch.bfloat16)
+                             for v in (xy, c, s, points, ts))
     d0 = pts[:, :, None, 0] - xy[:, None, :, 0]
     d1 = pts[:, :, None, 1] - xy[:, None, :, 1]
     c, s = c[:, None], s[:, None]
-    f = body(c * d0 + s * d1, -s * d0 + c * d1)
+    f = body(c * d0 + s * d1, -s * d0 + c * d1, ts[:, None])
     best, arg = torch.min(f, dim=-1)
     return best.to(points.dtype), arg
 
@@ -410,7 +461,7 @@ def _coarse(body, traj: Traj, points, k: int, bf16: bool):
 def _exact(body, traj: Traj, points, t):
     """Body SDF of each point at its own times t (B, M, S)."""
     xy, yaw = traj.pose(t)
-    return body(*_body_frame(points, xy, yaw))
+    return body(*_body_frame(points, xy, yaw), t)
 
 
 def tstar(body, traj: Traj, points, o: Oracle, k: int | None = None,

@@ -8,6 +8,10 @@ asks for. The cell is an entry of ``workloads`` in BENCHMARK.json; its
 configuration, traffic, limits and per-layer readers are files found by
 name (``configs/``, ``traffic/``, ``limits/``, ``metrics/``).
 
+A configuration's robot is an analytic body of its own file
+(``bodies/<name>.py``, found by the name its ``robot.body`` gives) or a
+mesh, and may breathe (``robot.scale``); reference.py says how.
+
 A run: set-up (the program's robot and planner, one warm-up request at
 the cell's sizes, which builds every kernel); the measured window, a
 closed loop with one client, each request drawn from (seed, index) and

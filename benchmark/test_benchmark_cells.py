@@ -12,6 +12,8 @@ staged and 256 forest plans) and means over a few plans stray past it.
 """
 
 import json
+import os
+import shutil
 
 import numpy as np
 import pytest
@@ -35,7 +37,8 @@ SAMPLED = dict(TINY, **{
     "heart-prism.forest-large": {"batch": 256, "check_samples": 256},
 })
 REQUESTS = {"sdHeart.staged-large": 1, "heart-prism.grid-field": 2,
-            "heart-prism.forest-large": 1}
+            "heart-prism.forest-large": 1,
+            "sdRhombus-breathing.staged-large": 1}
 
 
 def _correct(cell, numbers) -> bool:
@@ -187,3 +190,77 @@ def test_grid_faults_are_not_correct(fault, monkeypatch):
     numbers = run.check(cell, SEED, _answers(cell, 3))
     assert not _correct(cell, numbers), numbers
     assert np.isfinite(numbers["field_gap_m"])
+
+
+# ---------------------------------------------------------------------------
+# a robot added with data alone
+# ---------------------------------------------------------------------------
+
+#: a breathing sdRhombus (utils/fixtures.py's deformable_rhombus) under
+#: the staged traffic, as a configuration would add it: its own files
+#: beside copies of the harness's, in a checkout of its own
+BREATHING = {"body": "sdRhombus", "scale": {
+    "schedule": "breathing", "amp": 0.2, "rate": 0.8, "kernel_scale": 1.2}}
+#: for this test only: the staged cell's limits, with cost_left at "the
+#: optimizer lowered the cost" (the cell's own limits are calibrated on
+#: the card when a configuration adds it)
+BREATHING_LIMITS = {"traj_gap_m": 0.02, "cost_gap_rel.q90": 2e-5,
+                    "cost_left": 1.0, "unsolved_share": 5.0}
+
+
+def _checkout_with(tmp_path, monkeypatch, name: str, robot: dict) -> str:
+    """A checkout under tmp_path holding the harness's data files and a
+    configuration ``name`` of ``robot`` with a staged cell: the cell's
+    name. The harness reads it from there."""
+    root = tmp_path / "checkout"
+    bench = root / "benchmark"
+    for d in ("traffic", "limits", "metrics"):
+        shutil.copytree(os.path.join(run.HERE, d), bench / d)
+    manifest = run.load_json(run.ROOT, "BENCHMARK.json")
+    cfg = dict(run.load_json(run.HERE, "configs", "sdHeart.json"),
+               robot=robot)
+    cell = f"{name}.staged-large"
+    (bench / "configs").mkdir()
+    (bench / "configs" / f"{name}.json").write_text(json.dumps(cfg))
+    (bench / "limits" / f"{cell}.json").write_text(
+        json.dumps(BREATHING_LIMITS))
+    manifest["configs"].append({
+        "name": name, "source": "test", "reduced": [], "why": "test",
+        "file": f"benchmark/configs/{name}.json"})
+    manifest["workloads"].append({
+        "name": cell, "config": name, "traffic": "staged-large",
+        "chips": 1, "why": "test"})
+    for m in manifest["end_to_end"] + manifest["per_layer"]:
+        if "sdHeart.staged-large" in m.get("workloads", []):
+            m["workloads"].append(cell)
+    (root / "BENCHMARK.json").write_text(json.dumps(manifest))
+    monkeypatch.setattr(run, "ROOT", str(root))
+    monkeypatch.setattr(run, "HERE", str(bench))
+    return cell
+
+
+def test_a_breathing_robot_needs_only_data(tmp_path, monkeypatch):
+    """The staged entry end to end for the breathing robot: the program's
+    ScaledShape and the reference's scaled body, correct; then the plan
+    faults, each not correct while the robot breathes."""
+    cell = _checkout_with(tmp_path, monkeypatch, "sdRhombus-breathing",
+                          BREATHING)
+    # 64 plans a request: about 3 in 100 read cost gaps past 2e-5 (a
+    # bfloat16 basin of their own), so a tiny request's q90 would not
+    # hold; such a request takes about 10 s on the host, and the window
+    # holds two or so
+    size = {"batch": 64, "check_samples": 64}
+    res = run.run_cell(cell, SEED, 25.0, False, device="cpu",
+                       overrides=dict(size, warmup=0))
+    assert res["correct"], res["checks"]
+    c = run.setup(cell, SEED, "cpu", dict(size, warmup=0))
+    assert c.entry.shape.time_varying
+    for fault, number in sorted(PLAN_FAULTS.items()):
+        _found_by(c, fault, number)
+
+
+def test_an_unknown_body_fails_at_setup(tmp_path, monkeypatch):
+    cell = _checkout_with(tmp_path, monkeypatch, "sdNoSuch",
+                          {"body": "sdNoSuch"})
+    with pytest.raises(ValueError, match=r"bodies/sdNoSuch\.py"):
+        run.setup(cell, SEED, "cpu", TINY["sdHeart.staged-large"])

@@ -1,7 +1,7 @@
 """The benchmark's manifest and sources: names, units and keys as the
 benchmark's contract allows them, every cell's files present, and no
 file of the harness or the reference importing JAX or the JAX package
-(or, for the reference, the program)."""
+(or, for the reference and its body files, the program)."""
 
 import ast
 import json
@@ -132,7 +132,11 @@ def test_no_file_imports_jax_or_the_jax_package():
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    for f in PLAIN:
+    bodies = sorted(os.path.join("bodies", f)
+                    for f in os.listdir(os.path.join(HERE, "bodies"))
+                    if f.endswith(".py"))
+    assert "bodies/sdHeart.py" in bodies
+    for f in PLAIN + tuple(bodies):
         mods = _imports(os.path.join(HERE, f))
         assert "svsdf_tpu_torch" not in mods and not mods & FORBIDDEN, f
 

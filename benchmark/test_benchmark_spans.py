@@ -145,7 +145,7 @@ def test_span_names():
 def test_existing_readers_read_the_same_with_spans(metric):
     plain = [r for r in HOST if not spans.is_span(r[0])]
     launch = [{"body": "sdHeart", "b": 16, "m": 64, "k": 96, "bf16": True,
-               "grid_bytes": 0}]
+               "scaled": False, "grid_bytes": 0}]
     with_spans, without = (
         Context("staged", 16, Trace(12.0, list(DEVICE), host), launch, {},
                 {}) for host in (HOST, plain))

@@ -29,8 +29,9 @@ class Trace(NamedTuple):
 
 @contextlib.contextmanager
 def scan_launches(record: list):
-    """Record (body, B, M, K, bfloat16, grid bytes) of every coarse-scan
-    kernel launch the program makes inside the block, in launch order."""
+    """Record (body, B, M, K, bfloat16, deformable, grid bytes) of every
+    coarse-scan kernel launch the program makes inside the block, in
+    launch order."""
     from svsdf_tpu_torch.ops import cuda_svsdf as cs
     launch = cs._launch
 
@@ -40,6 +41,7 @@ def scan_launches(record: list):
             "body": "grid" if grid is not None else shape.name,
             "b": points.shape[0], "m": points.shape[1], "k": xy.shape[1],
             "bf16": cs.scan_type(scan_dtype) == torch.bfloat16,
+            "scaled": bool(shape.time_varying),
             "grid_bytes": 0 if grid is None else grid.field.nbytes})
         return launch(shape, points, xy, cos, sin, scan_dtype, ts)
 
